@@ -1,5 +1,5 @@
 """Tuned per-(model, dataset) hyper-parameters — the port's copy of the
-``gcn`` entry of ``cogdl_tpu/configs.py``; applied when
+``gcn`` and ``gat`` entries of ``cogdl_tpu/configs.py``; applied when
 ``use_best_config=True`` with precedence defaults < best-config < user
 kwargs."""
 
@@ -10,5 +10,11 @@ BEST_CONFIGS = {
         "cora": {"hidden_size": 64},
         "citeseer": {"hidden_size": 64, "dropout": 0.5},
         "pubmed": {"hidden_size": 64},
+    },
+    "gat": {
+        "general": {"lr": 0.005, "weight_decay": 5e-4, "epochs": 1000,
+                    "patience": 100, "hidden_size": 8, "nhead": 8,
+                    "dropout": 0.6, "attn_drop": 0.6},
+        "pubmed": {"nhead_last": 8, "weight_decay": 0.001},
     },
 }

@@ -8,10 +8,21 @@ from .segment import (
     segment_softmax,
     segment_sum,
 )
-from .spmm import cache_propagation, source_table, spmm, spmm_coo
+from .spmm import (
+    cache_propagation,
+    edge_softmax,
+    gather_src,
+    mh_sddmm,
+    mh_spmm,
+    sddmm,
+    source_table,
+    spmm,
+    spmm_coo,
+)
 
 __all__ = [
     "gather", "segment_sum", "segment_mean", "segment_max",
     "segment_softmax", "spmm", "spmm_coo", "source_table",
-    "cache_propagation",
+    "cache_propagation", "gather_src", "sddmm", "edge_softmax", "mh_spmm",
+    "mh_sddmm",
 ]

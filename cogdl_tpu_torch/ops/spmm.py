@@ -1,4 +1,5 @@
-"""SpMM dispatch — the port of ``cogdl_tpu/ops/spmm.py`` (the GCN slice).
+"""SpMM dispatch and the multi-head attention ops — the port of
+``cogdl_tpu/ops/spmm.py`` (the GCN and GAT slices).
 
 Two tiers share one contract (features ``[n_pad, F]`` in, ``[n_pad, F]``
 out, pad rows give zeros because pad edges carry zero weight):
@@ -11,6 +12,11 @@ out, pad rows give zeros because pad edges carry zero weight):
 
 A CUDA tensor always goes to the kernel; ``spmm`` raises rather than run the
 plain tier on the card.
+
+``gather_src``, ``sddmm``, ``edge_softmax``, ``mh_spmm`` and ``mh_sddmm`` are
+plain torch on any device: they carry GAT's unfused route, which a layer
+takes only for a graph without the kernel structure (on the card the fused
+attention kernel runs instead, ``ops/cuda``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 from ..data.graph import Graph
 from . import segment as seg
 
-__all__ = ["spmm", "spmm_coo", "source_table", "cache_propagation"]
+__all__ = ["spmm", "spmm_coo", "source_table", "cache_propagation",
+           "gather_src", "sddmm", "edge_softmax", "mh_spmm", "mh_sddmm"]
 
 
 def spmm_coo(
@@ -49,6 +56,11 @@ def source_table(graph: Graph, x: torch.Tensor) -> torch.Tensor:
             "halo-partitioned graphs are not yet ported to cogdl_tpu_torch "
             "(ROADMAP.md §1, multi-device)")
     return x
+
+
+def gather_src(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """Per-edge source features ``x[col[e]]``."""
+    return seg.gather(source_table(graph, x), graph.col)
 
 
 def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -86,3 +98,35 @@ def cache_propagation(graph: Graph, adj_norm: str = "sym") -> Graph:
     extras = dict(graph.extras or {})
     extras.update(prop_x=p, prop_s=s)
     return graph.replace(extras=extras)
+
+
+def sddmm(graph: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense product: per-edge ``a[row[e]] · b[col[e]]``;
+    ``[E]`` for 2-D inputs, ``[E, H]`` for 3-D ``[N, H, D]`` inputs."""
+    return (seg.gather(a, graph.row) * gather_src(graph, b)).sum(-1)
+
+
+def edge_softmax(graph: Graph, scores: torch.Tensor,
+                 mask_pad: bool = True) -> torch.Tensor:
+    """Per-destination softmax of edge scores ``[E]`` or ``[E, H]``; pad
+    edges get zero attention."""
+    mask = graph.edge_mask() if mask_pad else None
+    return seg.segment_softmax(scores, graph.row, graph.n_pad, mask=mask)
+
+
+def mh_spmm(graph: Graph, attention: torch.Tensor,
+            h: torch.Tensor) -> torch.Tensor:
+    """Multi-head SpMM: ``out[v, h, :] = Σ_e att[e, h] · feat[col[e], h, :]``
+    with ``attention`` ``[E, H]`` and ``h`` ``[N, H, D]``."""
+    H, D = h.shape[1], h.shape[2]
+    msg = gather_src(graph, h.reshape(-1, H * D)).reshape(-1, H, D)
+    return seg.segment_sum(msg * attention[:, :, None], graph.row,
+                           graph.n_pad)
+
+
+def mh_sddmm(graph: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-edge, per-head dots of ``[N, H, D]`` inputs: ``[E, H]``."""
+    H, D = a.shape[1], a.shape[2]
+    ae = seg.gather(a.reshape(-1, H * D), graph.row).reshape(-1, H, D)
+    be = gather_src(graph, b.reshape(-1, H * D)).reshape(-1, H, D)
+    return (ae * be).sum(-1)

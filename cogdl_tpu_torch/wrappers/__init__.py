@@ -14,7 +14,8 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
 }
 
 # model name → default wrapper
-DEFAULT_WRAPPER = {"gcn": "node_classification"}
+DEFAULT_WRAPPER = {"gcn": "node_classification",
+                   "gat": "node_classification"}
 
 
 def fetch_wrapper(name: str):

@@ -29,7 +29,7 @@ class NodeClfWrapper:
     # -- data ---------------------------------------------------------------
     def prepare_graph(self, graph: Graph) -> Graph:
         """Add self loops, apply the model's adjacency normalisation once, and
-        on the card build the SpMM kernel's structure."""
+        on the card build the kernels' structure (K1 and K3)."""
         graph = add_self_loops(graph)
         norm = getattr(self.model, "adj_norm", None)
         if norm == "sym":

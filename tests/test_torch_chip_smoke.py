@@ -43,6 +43,63 @@ def test_parity_and_quality_phase_rehearsal():
     assert cs.phase_quality(CPU) >= cs.SBM_MIN_TEST_ACC
 
 
+def test_gat_kernel_check_phase_rehearsal():
+    entries = cs.phase_gat_kernel_check(CPU, num_nodes=300, iters=1)
+    assert [e["name"] for e in entries] == [
+        f"gat_pass[{m},H={h},D={d}]" for h, d in ((8, 16), (1, 47))
+        for m in ("fwd", "dsd", "dsrc")]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for e in entries:
+        assert keys <= set(e)
+        assert e["err_over_tol"] == 0.0   # the plain version on both sides
+        assert e["library_ms"] is None and e["bound_by"] == "bytes"
+        assert e["source"] == "cogdl_tpu_torch/csrc/gat_fused.cu"
+        assert os.path.exists(os.path.join(REPO, e["source"]))
+        path, line = e["replaces"].split(":")
+        src = open(os.path.join(REPO, path)).read().splitlines()
+        assert src[int(line) - 1].startswith("def _gat_pass(")
+
+
+def test_gat_autograd_phase_rehearsal():
+    report = cs.phase_gat_autograd(CPU, num_nodes=300)
+    assert set(report) == {"H=8,D=16", "H=1,D=47"}
+    assert max(max(r.values()) for r in report.values()) <= 1.0
+
+
+def test_gat_main_path_phase_rehearsal():
+    info = cs.phase_gat_main_path(CPU, num_nodes=300, epochs=2)
+    assert info["launches"] == 0  # CPU tensors never launch the kernel
+    assert len(info["launches_by_case"]) == 6
+    assert set(info["launches_by_case"].values()) == {0}
+    assert info["train_step_ms"] > 0 and info["eval_ms"] > 0
+
+
+def test_gat_parity_and_quality_phase_rehearsal():
+    assert cs.phase_gat_parity(CPU, num_nodes=300) == 0.0
+    assert cs.phase_gat_quality(CPU) >= cs.SBM_MIN_TEST_ACC
+
+
+def test_gat_bound_counts_each_byte_once():
+    # 1000 rows written, 900 of them with edges, 800 neighbours named;
+    # H=2, D=4 (H·D=8), dropout on: orig ids read beside the indices
+    H, HD = 2, 8
+    rows = {"fwd": (HD + H, H, HD + H), "dsd": (HD + H, HD + 2 * H, H),
+            "dsrc": (HD + 2 * H, HD + H, HD + H)}
+    for mode, (nbr_w, own_w, out_w) in rows.items():
+        ms, by = cs.gat_bound_ms(mode, n_rows=1000, nnz=10_000, x_rows=800,
+                                 own_rows=900, heads=H, head_dim=4, drop=True)
+        nbytes = (4 * 1001 + 2 * 4 * 10_000 + 4 * 800 * nbr_w
+                  + 4 * 900 * own_w + 4 * H + 4 * 1000 * out_w)
+        assert by == "bytes"
+        assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # without dropout the orig ids are not read
+    ms, _ = cs.gat_bound_ms("fwd", 1000, 10_000, 800, 900, H, 4, drop=False)
+    assert ms == pytest.approx((4 * 1001 + 4 * 10_000 + 4 * 800 * (HD + H)
+                                + 4 * 900 * H + 4 * H + 4 * 1000 * (HD + H))
+                               / 3.35e12 * 1e3)
+
+
 def test_bound_counts_each_byte_once():
     # 1000 output rows written; only the 900 x rows that col names are read
     ms, by = cs.bound_ms(n_rows=1000, nnz=10_000, feat=128, x_rows=900)

@@ -1,5 +1,5 @@
-"""cogdl_tpu_torch on the card: K1 against its plain version, the autograd
-Function, the dispatch rules and the main path. Every test here needs an
+"""cogdl_tpu_torch on the card: K1 and K3 against their plain versions, the
+autograd Functions, the dispatch rules and the main paths. Every test here needs an
 NVIDIA card and skips without one. This file imports nothing of jax, so on a
 machine without it run:
 
@@ -14,8 +14,12 @@ from cogdl_tpu_torch.data.graph import add_self_loops, sym_norm
 from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph, sbm_graph
 from cogdl_tpu_torch.ops import spmm
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
+from cogdl_tpu_torch.ops.cuda import maybe_cuda_gat_fused
 from cogdl_tpu_torch.ops.cuda.segment_kernels import (
+    GATFusedFunction,
     SpMMFunction,
+    gat_pass,
+    gat_pass_reference,
     reset_launch_counts,
     spmm_csr,
     spmm_csr_reference,
@@ -113,3 +117,106 @@ def test_experiment_on_card_goes_through_kernel(dev):
     assert dict(spmm_csr.launches_by) == {
         ("csr", hidden): 2 * 201, ("csc", hidden): 2 * 100,
         ("csr", classes): 2 * 201, ("csc", classes): 2 * 100}
+
+
+# K3: (H, D) at H·D = 1, 4, 47 and 128, the float4 route (D % 4 == 0) and
+# the scalar one, more columns than one pass over the edges takes (H·D=150,
+# a head across the pass boundary) and the most heads (32)
+GAT_SHAPES = [(1, 1), (4, 1), (1, 4), (1, 47), (8, 16), (3, 50), (32, 2)]
+
+
+def _gat_case(dev, H, D, seed=0):
+    g = _graph(dev)
+    n = g.n_pad
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h2 = torch.randn(n, H * D, generator=gen, device=dev)
+    a_src = torch.randn(H, D, generator=gen, device=dev) / D ** 0.5
+    ss = (h2.view(n, H, D) * a_src).sum(-1).contiguous()
+    t = dict(sd=torch.randn(n, H, generator=gen, device=dev), ss=ss,
+             smax=ss.amax(0).contiguous(), h2=h2,
+             dagg=torch.randn(n, H * D, generator=gen, device=dev),
+             dden=torch.randn(n, H, generator=gen, device=dev))
+    return g, t
+
+
+def _gat_args(g, t, mode):
+    d = "bw" if mode == "dsrc" else "fw"
+    ex = g.extras
+    args = (mode, ex[f"spmm_{d}_ptr"], ex[f"spmm_{d}_col"], ex[f"spmm_{d}_orig"],
+            t["sd"], t["ss"], t["smax"], t["h2"])
+    return args + (() if mode == "fwd" else (t["dagg"], t["dden"]))
+
+
+@pytest.mark.parametrize("attn_drop", [0.0, 0.6])
+@pytest.mark.parametrize("H,D", GAT_SHAPES)
+@pytest.mark.parametrize("mode", ["fwd", "dsd", "dsrc"])
+def test_gat_kernel_matches_plain_version(dev, mode, H, D, attn_drop):
+    g, t = _gat_case(dev, H, D)
+    args = _gat_args(g, t, mode)
+    kw = dict(alpha=0.2, attn_drop=attn_drop,
+              seed=torch.tensor([77], device=dev), with_keep=True)
+    reset_launch_counts()
+    *outs, keep = gat_pass(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_pass.launches == 1
+    assert dict(gat_pass.launches_by) == {(mode, H, D): 1}
+    *refs, keep_ref = gat_pass_reference(*args, **kw)
+    assert torch.equal(keep, keep_ref)
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_gat_kernel_is_deterministic(dev):
+    g, t = _gat_case(dev, 8, 16)
+    kw = dict(alpha=0.2, attn_drop=0.6, seed=torch.tensor([5], device=dev))
+    for mode in ("fwd", "dsd", "dsrc"):
+        a, b = gat_pass(*_gat_args(g, t, mode), **kw), gat_pass(
+            *_gat_args(g, t, mode), **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_gat_autograd_function_matches_plain_version(dev):
+    g, t = _gat_case(dev, 4, 8)
+    ex = g.extras
+    keys = [ex[f"spmm_{d}_{k}"] for d in ("fw", "bw") for k in ("ptr", "col", "orig")]
+    seed = torch.tensor([3], device=dev)
+    probe = torch.randn_like(t["h2"])
+    grads = []
+    for on_card in (True, False):
+        ins = [t[k].clone().requires_grad_(True) for k in ("sd", "ss", "h2")]
+        if on_card:
+            out = GATFusedFunction.apply(*ins, *keys, seed, 0.2, 0.5)
+        else:
+            ins = [x.cpu().detach().requires_grad_(True) for x in ins]
+            out = GATFusedFunction.apply(*ins, *(k.cpu() for k in keys),
+                                         seed.cpu(), 0.2, 0.5)
+        (out * probe.to(out.device)).sum().backward()
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in ins])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_gat_needs_the_kernel_structure(dev):
+    g = add_self_loops(sbm_graph(num_nodes=100, seed=0)).to(dev)
+    h = torch.zeros(g.n_pad, 2, 3, device=dev)
+    s = torch.zeros(g.n_pad, 2, device=dev)
+    with pytest.raises(RuntimeError, match="prepare_spmm"):
+        maybe_cuda_gat_fused(g, s, s, h)
+    _, t = _gat_case(dev, 2, 3)
+    with pytest.raises(TypeError):
+        gat_pass(*_gat_args(_graph(dev), {**t, "sd": t["sd"].double()}, "fwd"),
+                 alpha=0.2)
+
+
+def test_gat_experiment_on_card_goes_through_kernel(dev):
+    reset_launch_counts()
+    res = experiment(dataset="sbm", model="gat", epochs=100, seed=[0, 1],
+                     patience=1000)
+    (runs,) = res.values()
+    assert min(r["test_acc"] for r in runs) >= 0.95
+    # per seed and layer: fwd in every step and evaluation (+ the final
+    # one), dsd and dsrc in every step (sbm: 8 heads of 8, then 1 of 4)
+    by = dict(gat_pass.launches_by)
+    assert by == {(m, h, d): 2 * (201 if m == "fwd" else 100)
+                  for m in ("fwd", "dsd", "dsrc") for h, d in ((8, 8), (1, 4))}
+    assert spmm_csr.launches == 0
