@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the checkout (K1, the CSR SpMM, and K3,
-the fused GAT attention pass), holds each against its plain PyTorch version
-at the main paths' shapes, trains GCN and then GAT through ``experiment()``
-and checks that each path went through its kernel, compares card and CPU
-logits, and checks accuracy on ``sbm``. Prints one JSON line of kernel
-measurements and, last, ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, when torch sees no CUDA device or any phase fails.
+Builds the port's CUDA kernels from the checkout (K1, the CSR SpMM, K2, the
+accumulating CSR SpMM, and K3, the fused GAT attention pass), holds each
+against its plain PyTorch version at the main paths' shapes, trains GCN and
+then GAT through ``experiment()`` and checks that each path went through its
+kernel, compares card and CPU logits, and checks accuracy on ``sbm``. Then
+the products-scale path of ``cogdl_tpu_torch.bench`` (2.45 M nodes, about
+125 M edges, the panel structure built on the card): K2 and K3's
+accumulating form against their plain versions panel by panel, a sweep of
+panel heights, and GCN and GAT train steps with exact launch counts. Prints
+one JSON line of kernel measurements and, last, ``{"ok": true, "device":
+{...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
+or any phase fails.
 
 The phases are functions of a device and a size so that a CPU test can
 rehearse them at a tiny size.
@@ -27,13 +32,23 @@ import time
 import numpy as np
 import torch
 
+from cogdl_tpu_torch import bench
 from cogdl_tpu_torch.data.graph import add_self_loops, sym_norm
 from cogdl_tpu_torch.datasets.dataset import Dataset
-from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph
+from cogdl_tpu_torch.datasets.synthetic import (
+    powerlaw_graph,
+    powerlaw_graph_device,
+)
 from cogdl_tpu_torch.experiments import experiment
 from cogdl_tpu_torch.models import build_model
-from cogdl_tpu_torch.ops import edge_softmax, gather, gather_src, mh_spmm
-from cogdl_tpu_torch.ops.cuda import prepare_spmm
+from cogdl_tpu_torch.ops import (
+    cache_propagation,
+    edge_softmax,
+    gather,
+    gather_src,
+    mh_spmm,
+)
+from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 
@@ -73,8 +88,20 @@ SBM_MIN_TEST_ACC = 0.95
 # each kernel's source and the TPU kernel it replaces
 SPMM_SOURCE = "cogdl_tpu_torch/csrc/spmm_csr.cu"
 SPMM_REPLACES = "cogdl_tpu/ops/pallas/segment_kernels.py:294"
+ACCUM_SOURCE = "cogdl_tpu_torch/csrc/spmm_csr_accum.cu"
+ACCUM_REPLACES = "cogdl_tpu/ops/pallas/segment_kernels.py:244"
 GAT_SOURCE = "cogdl_tpu_torch/csrc/gat_fused.cu"
 GAT_REPLACES = "cogdl_tpu/ops/pallas/segment_kernels.py:975"
+
+# the products-scale path (bench --products): 2.45M nodes x 50, a few steps
+PRODUCTS_NODES = bench.PRODUCTS_NODES
+PRODUCTS_AVG_DEGREE = bench.PRODUCTS_AVG_DEGREE
+PRODUCTS_STEPS = 3
+# panels forced in the checks at the 100k graph and the 20k parity graph
+CHECK_PANELS = 4
+# the panel sweep: 1 is the one-shot K1, the others K2 over that many panels,
+# from slices of the feature table above the 50 MB L2 to a tenth of it
+SWEEP_PANELS = (1, 8, 32, 128, 256)
 
 
 def smi_line() -> str:
@@ -119,8 +146,23 @@ def bound_ms(n_rows: int, nnz: int, feat: int, x_rows: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def accum_bound_ms(n_rows: int, nnz: int, feat: int, x_rows: int,
+                   own_rows: int):
+    """Least time for one K2 call on the H100: the panel's row pointers, its
+    ``nnz`` col and w entries and the ``x_rows`` rows of x they name read
+    once, the ``own_rows`` rows of acc that have an edge read once and
+    written once, against the HBM rate; 2·nnz·F flops against the fp32
+    rate. Returns ``(ms, "bytes" | "operations")``."""
+    nbytes = 4 * (n_rows + 1) + 8 * nnz + 4 * (x_rows + 2 * own_rows) * feat
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * nnz * feat / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def gat_bound_ms(mode: str, n_rows: int, nnz: int, x_rows: int,
-                 own_rows: int, heads: int, head_dim: int, drop: bool):
+                 own_rows: int, heads: int, head_dim: int, drop: bool,
+                 accum: bool = False):
     """Least time for one K3 pass on the H100. Bytes, each input read once:
     ``ptr``, the ``nnz`` neighbour indices (and ``orig`` ids under
     dropout), the neighbour-table rows of the ``x_rows`` nodes that the
@@ -130,7 +172,10 @@ def gat_bound_ms(mode: str, n_rows: int, nnz: int, x_rows: int,
     row written once for all ``n_rows`` rows (fwd: num and den; dsd: dsd;
     dsrc: dh2 and dss). Operations: 2 flops per (edge, column) for each
     accumulated vector (fwd/dsd one, dsrc two) and 8 per (edge, head) for
-    the score, shift and exp, against the fp32 rate. Returns
+    the score, shift and exp, against the fp32 rate. With ``accum`` (one
+    panel's pass of the accumulating form) the outputs are read once and
+    written once for the ``own_rows`` rows with edges only; its coordinate
+    key reads no ``orig`` ids, so pass ``drop=False``. Returns
     ``(ms, "bytes" | "operations")``."""
     hd = heads * head_dim
     nbr_w = {"fwd": hd + heads, "dsd": hd + heads, "dsrc": hd + 2 * heads}[mode]
@@ -138,7 +183,7 @@ def gat_bound_ms(mode: str, n_rows: int, nnz: int, x_rows: int,
     out_w = {"fwd": hd + heads, "dsd": heads, "dsrc": hd + heads}[mode]
     nbytes = (4 * (n_rows + 1) + 4 * nnz * (2 if drop else 1)
               + 4 * (x_rows * nbr_w + own_rows * own_w + heads)
-              + 4 * n_rows * out_w)
+              + 4 * (2 * own_rows if accum else n_rows) * out_w)
     vectors = 2 if mode == "dsrc" else 1
     flops = 2.0 * nnz * hd * vectors + 8.0 * nnz * heads
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -414,15 +459,18 @@ def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
     return entries
 
 
-def phase_gat_autograd(device: torch.device, num_nodes: int = NUM_NODES):
+def phase_gat_autograd(device: torch.device, num_nodes: int = NUM_NODES,
+                       n_panels: int = 0):
     """GATFusedFunction (K3) against plain autograd through the unfused
     route (gather, edge_softmax, mh_spmm) at dropout 0, both shapes: the
     output and the grads of sd and h (through ss = Σ_d a_src·h), each within
-    ``KERNEL_ATOL + LOGIT_RTOL·max|plain|``. Returns the errors over
-    tolerance."""
+    ``KERNEL_ATOL + LOGIT_RTOL·max|plain|``. With ``n_panels`` the Function
+    takes its panel route (K3 accumulating) over that many source panels.
+    Returns the errors over tolerance."""
     g = kernel_graph(num_nodes, device)
-    ex = g.extras
-    keys = [ex[f"spmm_{d}_{k}"] for d in ("fw", "bw")
+    ex = g.extras if not n_panels else prepare_spmm_device(
+        g, with_orig=True, panel_rows=-(-g.n_pad // n_panels)).extras
+    keys = [ex.get(f"spmm_{d}_{k}") for d in ("fw", "bw")
             for k in ("ptr", "col", "orig")]
     plain = g.replace(extras=None)
     gen = torch.Generator(device=device).manual_seed(2)
@@ -452,7 +500,7 @@ def phase_gat_autograd(device: torch.device, num_nodes: int = NUM_NODES):
                 for k, a, b in zip(("out", "dsd", "dh"), res["fused"],
                                    res["plain"])}
         report[f"H={heads},D={head_dim}"] = errs
-    print(f"[gat-autograd] err/tol {json.dumps(report)}")
+    print(f"[gat-autograd] panels={n_panels} err/tol {json.dumps(report)}")
     if not max(max(r.values()) for r in report.values()) <= 1.0:
         raise AssertionError(f"GATFusedFunction disagrees with plain autograd: "
                              f"{report}")
@@ -541,6 +589,521 @@ def phase_gat_quality(device: torch.device, epochs: int = 100):
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The products-scale slice: K2, K3 accumulating, the panel structure, bench
+# ---------------------------------------------------------------------------
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _panel_stats(ptr: torch.Tensor, col: torch.Tensor):
+    """``(nnz, x_rows, own_rows)`` of one panel: its edges, the distinct
+    neighbour rows they name and the grouping rows that have an edge."""
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    return (hi - lo, int(torch.unique(col[lo:hi]).numel()),
+            int((ptr[1:] > ptr[:-1]).sum()))
+
+
+def accum_check(ptrs, col, w, x, acc0, structure: str, device: torch.device):
+    """K2 panel by panel from the non-zero ``acc0`` against its plain
+    version run the same way. After every call the rows without an edge in
+    the panel must hold what they held, bit for bit. Returns ``(acc, error
+    over tolerance, largest absolute error, plain ms per sweep)``; the
+    tolerance is relative to ``|acc0| + Σ|w·x|`` of each element."""
+    acc, ref, scale = acc0.clone(), acc0.clone(), acc0.abs()
+    xa, wa = x.abs(), w.abs()
+    plain_ms = 0.0
+    for p, ptr in enumerate(ptrs):
+        untouched = ptr[1:] == ptr[:-1]
+        before = acc[untouched]
+        sk.spmm_csr_accum(acc, ptr, col, w, x, structure)
+        if not torch.equal(acc[untouched], before):
+            raise AssertionError(f"spmm_csr_accum[{structure}]: panel {p} "
+                                 "changed rows it has no edge for")
+        del before
+        _sync(device)
+        t0 = time.perf_counter()
+        sk.spmm_csr_accum_reference(ref, ptr, col, w, x)
+        _sync(device)
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        sk.spmm_csr_accum_reference(scale, ptr, col, wa, xa)
+    return (acc, scaled_err(acc, ref, scale), float((acc - ref).abs().max()),
+            plain_ms)
+
+
+def _panel_graph(num_nodes: int, device: torch.device, n_panels: int):
+    """The 100k kernel graph with a panel structure of ``n_panels`` source
+    panels in both directions (it is directed, so the transpose is built)."""
+    g = kernel_graph(num_nodes, device)
+    return g, prepare_spmm_device(g, panel_rows=-(-g.n_pad // n_panels))
+
+
+def phase_accum_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
+                             n_panels: int = CHECK_PANELS):
+    """K2 against spmm_csr_accum_reference over the panels of CSR(A) and
+    CSR(Aᵀ) at F=128 and F=47 from a non-zero accumulator, and the sum over
+    the panels against one K1 call on the unpanelled CSR. Returns the errors
+    over tolerance."""
+    g, gp = _panel_graph(num_nodes, device, n_panels)
+    gen = torch.Generator(device=device).manual_seed(3)
+    report = {}
+    for direction, structure in (("fw", "csr"), ("bw", "csc")):
+        ptrs, col, w = (gp.extras[f"spmm_{direction}_{k}"]
+                        for k in ("ptr", "col", "w"))
+        one = [g.extras[f"spmm_{direction}_{k}"] for k in ("ptr", "col", "w")]
+        if ptrs.shape[0] < n_panels:
+            raise AssertionError(f"{ptrs.shape[0]} panels, wanted {n_panels}")
+        for feat in (HIDDEN, NUM_CLASSES):
+            x = torch.randn(g.n_pad, feat, generator=gen, device=device)
+            acc0 = torch.randn(g.n_pad, feat, generator=gen, device=device)
+            acc, err, _, _ = accum_check(ptrs, col, w, x, acc0, structure,
+                                         device)
+            total = sk.spmm_csr(*one, x, structure)
+            scale = acc0.abs() + sk.spmm_csr_reference(
+                one[0], one[1], one[2].abs(), x.abs())
+            report[f"{structure},F={feat}"] = {
+                "vs_plain": err,
+                "vs_one_k1_call": scaled_err(acc - acc0, total, scale)}
+    print(f"[accum-kernel] panels={n_panels} err/tol {json.dumps(report)}")
+    if not max(max(r.values()) for r in report.values()) <= 1.0:
+        raise AssertionError(f"spmm_csr_accum disagrees: {report}")
+    return report
+
+
+def phase_panel_autograd(device: torch.device, num_nodes: int = NUM_NODES,
+                         n_panels: int = CHECK_PANELS):
+    """SpMMPanelFunction (K2) against plain autograd over the same
+    panel-major edge list: y, dX and dw within
+    ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``. Returns the errors over
+    tolerance."""
+    g, gp = _panel_graph(num_nodes, device, n_panels)
+    keys = [gp.extras[f"spmm_{d}_{k}"] for d in ("fw", "bw")
+            for k in ("ptr", "col", "w")]
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(g.n_pad, NUM_CLASSES, generator=gen, device=device,
+                    requires_grad=True)
+    w = keys[2].clone().requires_grad_(True)
+    probe = torch.randn(g.n_pad, NUM_CLASSES, generator=gen, device=device)
+    y = sk.SpMMPanelFunction.apply(x, keys[0], keys[1], w, *keys[3:])
+    dx, dw = torch.autograd.grad((y * probe).sum(), (x, w))
+    row = torch.cat([sk.panel_edges(ptr)[1] for ptr in keys[0]])
+    col = keys[1].long()
+
+    def plain(xv, wv):
+        return torch.zeros_like(xv).index_add(0, row, xv[col] * wv[:, None])
+
+    x_ref = x.detach().clone().requires_grad_(True)
+    w_ref = keys[2].clone().requires_grad_(True)
+    y_ref = plain(x_ref, w_ref)
+    dx_ref, dw_ref = torch.autograd.grad((y_ref * probe).sum(), (x_ref, w_ref))
+    xa, wa, pa = x.detach().abs(), keys[2].abs(), probe.abs()
+    errs = {"y": scaled_err(y, y_ref, plain(xa, wa)),
+            "dx": scaled_err(dx, dx_ref, torch.zeros_like(xa).index_add(
+                0, col, pa[row] * wa[:, None])),
+            "dw": scaled_err(dw, dw_ref, (pa[row] * xa[col]).sum(-1))}
+    print(f"[panel-autograd] panels={n_panels} err/tol {json.dumps(errs)}")
+    if not max(errs.values()) <= 1.0:
+        raise AssertionError(f"SpMMPanelFunction disagrees with plain "
+                             f"autograd: {errs}")
+    return errs
+
+
+def gat_accum_check(mode: str, ptrs, idx, t, drop: float, seed, gen,
+                    device: torch.device, with_keep: bool,
+                    plain_dtype: torch.dtype = torch.float32):
+    """K3's accumulating form (coordinate-keyed dropout) panel by panel from
+    non-zero accumulators against its plain version run the same way; rows
+    without an edge in a panel must keep their values bit for bit and, with
+    ``with_keep``, the keep masks must be equal. Returns ``(error over
+    tolerance, largest absolute error, plain ms per sweep)``; the tolerance
+    is relative to ``|acc0| + Σ|terms|`` of each element.
+
+    ``plain_dtype``: the type the plain version runs in, on the same inputs.
+    At the products shape it is float64: there the float32 ``index_add_``
+    of the plain version, 677,146 positive terms into one row of the
+    denominator, is itself 20 times the tolerance away from the float64
+    sum, while the kernel is within 0.11 of it (NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    n, heads = t["sd"].shape
+    hd = t["h2"].shape[1]
+    acc = tuple(torch.randn(n, wd, generator=gen, device=device)
+                for wd in sk.gat_output_widths(mode, heads, hd))
+    ref = tuple(a.to(plain_dtype, copy=True) for a in acc)
+    scale = tuple(a.abs().to(plain_dtype) for a in acc)
+    back = () if mode == "fwd" else (t["dagg"], t["dden"])
+    base = (t["sd"], t["ss"], t["smax"])
+    kw = dict(alpha=GAT_ALPHA, attn_drop=drop, seed=seed, coord_key=True)
+    pt = {k: v.to(plain_dtype) for k, v in t.items()}
+    p_back = () if mode == "fwd" else (pt["dagg"], pt["dden"])
+    p_base = (pt["sd"], pt["ss"], pt["smax"])
+    plain_ms = 0.0
+    for p, ptr in enumerate(ptrs):
+        untouched = ptr[1:] == ptr[:-1]
+        before = [a[untouched] for a in acc]
+        outs = sk.gat_pass(mode, ptr, idx, None, *base, t["h2"], *back,
+                           acc=acc, with_keep=with_keep, **kw)
+        if not all(torch.equal(a[untouched], b) for a, b in zip(acc, before)):
+            raise AssertionError(f"gat_pass[{mode}]: panel {p} changed rows "
+                                 "it has no edge for")
+        del before
+        _sync(device)
+        t0 = time.perf_counter()
+        refs = sk.gat_pass_reference(mode, ptr, idx, None, *p_base, pt["h2"],
+                                     *p_back, acc=ref, with_keep=with_keep,
+                                     **kw)
+        _sync(device)
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if with_keep and not torch.equal(outs[-1], refs[-1]):
+            raise AssertionError(
+                f"gat_pass[{mode}]: panel {p}'s keep mask differs from the "
+                f"plain version's at drop {drop}")
+        del outs, refs
+        # every term is a product with ex·slope·keep >= 0, so the plain
+        # pass over |tables| sums the terms' magnitudes
+        sk.gat_pass_reference(mode, ptr, idx, None, *p_base, pt["h2"].abs(),
+                              *(b.abs() for b in p_back), acc=scale, **kw)
+    errs = [scaled_err(a.to(plain_dtype), r, sc)
+            for a, r, sc in zip(acc, ref, scale)]
+    max_abs = max(float((a - r).abs().max()) for a, r in zip(acc, ref))
+    return max(errs), max_abs, plain_ms
+
+
+def phase_gat_accum_check(device: torch.device, num_nodes: int = NUM_NODES,
+                          n_panels: int = CHECK_PANELS):
+    """K3's accumulating form against gat_pass_reference in each mode at
+    both GAT shapes, attention dropout off and at 0.6, over ``n_panels``
+    panels of the 100k graph: sums within ``KERNEL_ATOL +
+    KERNEL_RTOL·Σ|terms|``, coordinate-keyed keep masks equal bit for bit.
+    Returns the errors over tolerance."""
+    g, gp = _panel_graph(num_nodes, device, n_panels)
+    gen = torch.Generator(device=device).manual_seed(5)
+    seed = torch.tensor([987654321], dtype=torch.int64, device=device)
+    report = {}
+    for heads, head_dim in GAT_SHAPES:
+        t = _gat_inputs(g.n_pad, heads, head_dim, gen, device)
+        for mode in sk.GAT_MODES:
+            d = "bw" if mode == "dsrc" else "fw"
+            ptrs, idx = gp.extras[f"spmm_{d}_ptr"], gp.extras[f"spmm_{d}_col"]
+            report[f"{mode},H={heads},D={head_dim}"] = max(
+                gat_accum_check(mode, ptrs, idx, t, drop, seed, gen, device,
+                                with_keep=True)[0]
+                for drop in (0.0, GAT_ATTN_DROP))
+    print(f"[gat-accum] panels={n_panels} err/tol {json.dumps(report)}")
+    if not max(report.values()) <= 1.0:
+        raise AssertionError(f"accumulating gat_pass disagrees: {report}")
+    return report
+
+
+def phase_panel_sweep(device: torch.device, nodes: int = PRODUCTS_NODES,
+                      avg_degree: int = PRODUCTS_AVG_DEGREE,
+                      panels=SWEEP_PANELS, steps: int = 2):
+    """GCN train step without the propagation cache at the products shape
+    over structures of 1 panel (one-shot K1, ``panel_rows=0``) and of more
+    (K2): one warm-up step, then ``steps`` timed. Recorded, no limit; the
+    default panel budget of ``device_layout`` is read off this table."""
+    g = powerlaw_graph_device(nodes, avg_degree=avg_degree, feat_dim=FEAT_DIM,
+                              device=device)
+    args = bench.parse_args(["--model", "gcn", "--no-prop-cache", "--warmup",
+                             "1", "--steps", str(steps), "--repeats", "1"])
+    rows = []
+    for n_panels in panels:
+        pr = 0 if n_panels == 1 else -(-g.n_pad // n_panels)
+        _sync(device)
+        t0 = time.perf_counter()
+        gp = prepare_spmm_device(g, symmetric=True, panel_rows=pr)
+        _sync(device)
+        build_s = time.perf_counter() - t0
+        model, opt = bench.make_model(args, gp, device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        sk.reset_launch_counts()
+        dt = bench.time_steps(model, opt, gp, args, gen)
+        one_shot = sk.spmm_csr.launches > 0
+        if device.type == "cuda" and one_shot != (n_panels == 1):
+            raise AssertionError(f"sweep at {n_panels} panels launched K1 "
+                                 f"{sk.spmm_csr.launches} times")
+        row = {"panels": n_panels, "panel_rows": pr,
+               "slice_mb_f128": (pr or g.n_pad) * HIDDEN * 4 / 1e6,
+               "kernel": "K1" if n_panels == 1 else "K2",
+               "step_ms_no_cache": dt * 1e3, "structure_s": build_s}
+        print(f"[sweep] {json.dumps(row)}")
+        rows.append(row)
+        del gp, model, opt
+    return rows
+
+
+def _accum_entries(ex, n_pad: int, device: torch.device, iters: int, launches):
+    """K2 at the main path's structure, F=128 and F=47: held against its
+    plain version panel by panel, then each panel timed by itself (kernel,
+    ``torch.sparse.addmm`` on the panel's CSR). ``ms`` and the other times
+    and the bound are means per launch, i.e. per panel; the sweep over all
+    panels is beside them."""
+    ptrs, col, w = ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"]
+    n_panels = ptrs.shape[0]
+    stats = [_panel_stats(ptr, col) for ptr in ptrs]
+    gen = torch.Generator(device=device).manual_seed(6)
+    entries = []
+    for feat in (HIDDEN, NUM_CLASSES):
+        x = torch.randn(n_pad, feat, generator=gen, device=device)
+        acc0 = torch.randn(n_pad, feat, generator=gen, device=device)
+        acc, err, max_abs, plain_ms = accum_check(ptrs, col, w, x, acc0,
+                                                  "csr", device)
+        name = f"spmm_csr_accum[F={feat}]"
+        if not err <= 1.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version ({err:.3g} x tolerance)")
+        del acc0
+        ms_by_panel, lib_by_panel = [], []
+        for ptr in ptrs:
+            ms_by_panel.append(time_ms(
+                lambda: sk.spmm_csr_accum(acc, ptr, col, w, x, "csr"),
+                device, iters, warmup=1))
+            lo, hi = int(ptr[0]), int(ptr[-1])
+            lib_a = torch.sparse_csr_tensor(ptr - lo, col[lo:hi], w[lo:hi],
+                                            size=(n_pad, n_pad),
+                                            check_invariants=False)
+            lib_by_panel.append(time_ms(
+                lambda: torch.sparse.addmm(acc, lib_a, x), device, iters,
+                warmup=1))
+            del lib_a
+        bounds = [accum_bound_ms(n_pad, nnz, feat, x_rows, own)
+                  for nnz, x_rows, own in stats]
+        entry = {
+            "name": name, "route": "cuda", "source": ACCUM_SOURCE,
+            "replaces": ACCUM_REPLACES,
+            "launches": sum(v for (_, f), v in launches.items() if f == feat),
+            "max_abs_err": max_abs, "err_over_tol": err,
+            "ms": sum(ms_by_panel) / n_panels,
+            "plain_ms": plain_ms / n_panels,
+            "bound_ms": sum(b for b, _ in bounds) / n_panels,
+            "bound_by": ("bytes" if all(by == "bytes" for _, by in bounds)
+                         else "operations"),
+            "library_ms": sum(lib_by_panel) / n_panels,
+            "panels": n_panels, "sweep_ms": sum(ms_by_panel),
+            "ms_panel_min": min(ms_by_panel), "ms_panel_max": max(ms_by_panel),
+            "library_sweep_ms": sum(lib_by_panel),
+            "rows": n_pad, "nnz": sum(st[0] for st in stats),
+            "nnz_panel_min": min(st[0] for st in stats),
+            "nnz_panel_max": max(st[0] for st in stats),
+            "max_row_nnz": int((ptrs[:, 1:] - ptrs[:, :-1]).max()),
+        }
+        print(f"[products-kernel] {json.dumps(entry)}")
+        entries.append(entry)
+        del x, acc
+    return entries
+
+
+def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
+                       launches):
+    """K3's accumulating form at the main path's structure, every mode at
+    both GAT shapes with attention dropout 0.6: held against its plain
+    version (run in float64, see :func:`gat_accum_check`) panel by panel,
+    then each panel timed by itself. Times and bound are means per launch,
+    i.e. per panel."""
+    ptrs, idx = ex["spmm_fw_ptr"], ex["spmm_fw_col"]
+    n_panels = ptrs.shape[0]
+    stats = [_panel_stats(ptr, idx) for ptr in ptrs]
+    gen = torch.Generator(device=device).manual_seed(7)
+    seed = torch.tensor([192837465], dtype=torch.int64, device=device)
+    entries = []
+    for heads, head_dim in GAT_SHAPES:
+        t = _gat_inputs(n_pad, heads, head_dim, gen, device)
+        hd = heads * head_dim
+        for mode in sk.GAT_MODES:
+            name = f"gat_pass_accum[{mode},H={heads},D={head_dim}]"
+            err, max_abs, plain_ms = gat_accum_check(
+                mode, ptrs, idx, t, GAT_ATTN_DROP, seed, gen, device,
+                with_keep=False, plain_dtype=torch.float64)
+            if not err <= 1.0:
+                raise AssertionError(f"{name}: kernel disagrees with its "
+                                     f"plain version ({err:.3g} x tolerance)")
+            if not entries:
+                # recorded, no limit: the same check against the float32
+                # plain version, the reason for the float64 one
+                err32 = gat_accum_check(mode, ptrs, idx, t, GAT_ATTN_DROP,
+                                        seed, gen, device, with_keep=False)[0]
+                print(f"[products-kernel] {name}: {err32:.3g} x tolerance "
+                      "from the plain version run in float32")
+            acc = tuple(torch.zeros(n_pad, wd, device=device)
+                        for wd in sk.gat_output_widths(mode, heads, hd))
+            back = () if mode == "fwd" else (t["dagg"], t["dden"])
+            kw = dict(alpha=GAT_ALPHA, attn_drop=GAT_ATTN_DROP, seed=seed,
+                      coord_key=True, acc=acc)
+            ms_by_panel = [time_ms(
+                lambda: sk.gat_pass(mode, ptr, idx, None, t["sd"], t["ss"],
+                                    t["smax"], t["h2"], *back, **kw),
+                device, iters, warmup=1) for ptr in ptrs]
+            bounds = [gat_bound_ms(mode, n_pad, nnz, x_rows, own, heads,
+                                   head_dim, drop=False, accum=True)
+                      for nnz, x_rows, own in stats]
+            entry = {
+                "name": name, "route": "cuda", "source": GAT_SOURCE,
+                "replaces": GAT_REPLACES,
+                "launches": launches.get((mode, heads, head_dim), 0),
+                "max_abs_err": max_abs, "err_over_tol": err,
+                "ms": sum(ms_by_panel) / n_panels,
+                "plain_ms": plain_ms / n_panels,
+                "bound_ms": sum(b for b, _ in bounds) / n_panels,
+                "bound_by": ("bytes" if all(by == "bytes" for _, by in bounds)
+                             else "operations"),
+                "library_ms": None, "panels": n_panels,
+                "plain_dtype": "float64",
+                "sweep_ms": sum(ms_by_panel),
+                "ms_panel_min": min(ms_by_panel),
+                "ms_panel_max": max(ms_by_panel),
+                "rows": n_pad, "nnz": sum(st[0] for st in stats),
+                "attn_drop": GAT_ATTN_DROP,
+            }
+            print(f"[products-kernel] {json.dumps(entry)}")
+            entries.append(entry)
+            del acc
+    return entries
+
+
+def phase_products(device: torch.device, model: str,
+                   nodes: int = PRODUCTS_NODES,
+                   avg_degree: int = PRODUCTS_AVG_DEGREE,
+                   panel_rows=None, steps: int = PRODUCTS_STEPS,
+                   iters: int = 2):
+    """The products-scale main path through the functions of
+    ``cogdl_tpu_torch.bench``: the graph generated and its panel structure
+    built on the device, the raw edges freed, one warm-up step and then
+    ``steps`` train steps (GCN with the propagation cache and then without,
+    GAT with attention dropout 0.6). Checks that the loss is finite and
+    falls, that the backward shares the forward's structure, and on the card
+    the exact launch counts: with P panels a GCN step launches K2 P + P
+    times with the cache and 2·P + 2·P without, a GAT step K3 2·P times in
+    each mode, and neither launches K1. Then holds the path's kernel against
+    its plain version at this structure and times it. Returns ``(info,
+    kernel entries)``."""
+    argv = ["--model", model, "--nodes", str(nodes), "--avg-degree",
+            str(avg_degree), "--blocked", "--device", str(device)]
+    if (nodes, avg_degree) == (PRODUCTS_NODES, PRODUCTS_AVG_DEGREE):
+        argv.append("--products")
+    if model == "gat":
+        argv += ["--attn-drop", str(GAT_ATTN_DROP)]
+    if panel_rows is not None:
+        argv += ["--panel-rows", str(panel_rows)]
+    args = bench.parse_args(argv)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    graph = bench.make_graph(args, device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    ex = graph.extras
+    ptrs = ex["spmm_fw_ptr"]
+    if ptrs.ndim != 2 or ptrs.shape[0] < 2:
+        raise AssertionError(f"{model}: the products path has no panel "
+                             f"structure (ptr {tuple(ptrs.shape)})")
+    if not all(ex[f"spmm_bw_{k}"] is ex[f"spmm_fw_{k}"]
+               for k in ("ptr", "col")):
+        raise AssertionError(f"{model}: the backward structure is not the "
+                             "forward's")
+    if graph.row.numel() != 1 or graph.col.numel() != 1:
+        raise AssertionError(f"{model}: the raw edge arrays were not freed")
+    n_panels = ptrs.shape[0]
+    runs = [("", graph)]
+    if model == "gcn":
+        t0 = time.perf_counter()
+        cached = cache_propagation(graph)
+        _sync(device)
+        setup_s += time.perf_counter() - t0
+        runs = [("cached", cached), ("uncached", graph)]
+    net, opt = bench.make_model(args, graph, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    info = {"model": model, "nodes": nodes, "edges": graph.num_edges,
+            "panels": n_panels,
+            "panel_rows": graph.meta_get("spmm_panel_rows"),
+            "setup_s": setup_s, "steps": steps}
+    kernel = sk.spmm_csr_accum if model == "gcn" else sk.gat_pass
+    total = {}
+    for label, gr in runs:
+        bench.train_steps(net, opt, gr, 1, gen)             # warm-up
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = bench.train_steps(net, opt, gr, steps, gen)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        by_case = dict(kernel.launches_by)
+        if model == "gcn":
+            feats = (NUM_CLASSES,) if label == "cached" else (HIDDEN,
+                                                              NUM_CLASSES)
+            expected = {(s, f): n_panels * steps * on_card
+                        for s in ("csr", "csc") for f in feats}
+            other = sk.spmm_csr.launches + sk.gat_pass.launches
+        else:
+            expected = {(m, h, d): n_panels * steps * on_card
+                        for m in sk.GAT_MODES for h, d in GAT_SHAPES}
+            other = sk.spmm_csr.launches + sk.spmm_csr_accum.launches
+        if by_case != {k: v for k, v in expected.items() if v} or other:
+            raise AssertionError(
+                f"products {model} {label}: launches {by_case} (and {other} "
+                f"of other kernels); expected {expected} ({steps} steps, "
+                f"{n_panels} panels)")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"products {model} {label}: loss not "
+                                 f"finite or not falling: {losses}")
+        for k, v in by_case.items():
+            total[k] = total.get(k, 0) + v
+        key = f"{label}_" if label else ""
+        info.update({f"{key}step_ms": step_ms, f"{key}losses": losses,
+                     f"{key}launches_per_step": sum(expected.values()) // steps})
+    if on_card:
+        info["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    print(f"[products] {json.dumps(info)}")
+    del net, opt, runs
+    entries = (_accum_entries if model == "gcn" else _gat_accum_entries)(
+        ex, graph.n_pad, device, iters, total)
+    return info, entries
+
+
+def phase_panel_parity(device: torch.device,
+                       num_nodes: int = GAT_PARITY_NODES,
+                       n_panels: int = CHECK_PANELS):
+    """Logits of a small GCN and GAT over a panel structure on ``device``
+    (K2, K3 accumulating) against the CPU run of the same code (their plain
+    versions), dropout off; returns the largest differences."""
+    g = powerlaw_graph_device(num_nodes, avg_degree=AVG_DEGREE,
+                              feat_dim=FEAT_DIM, num_classes=NUM_CLASSES,
+                              device="cpu")
+    diffs = {}
+    for name in ("gcn", "gat"):
+        kw = dict(hidden_size=HIDDEN) if name == "gcn" else dict(
+            hidden_size=GAT_HEAD_DIM, nhead=GAT_HEADS, attn_drop=0.0)
+        model = build_model(name, in_features=FEAT_DIM,
+                            out_features=NUM_CLASSES, dropout=0.0, **kw)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        logits = {}
+        for dev in (torch.device("cpu"), device):
+            m = copy.deepcopy(model).to(dev)
+            gp = prepare_spmm_device(
+                g.to(dev), symmetric=True, with_orig=name == "gat",
+                panel_rows=-(-g.n_pad // n_panels))
+            if gp.extras["spmm_fw_ptr"].shape[0] < n_panels:
+                raise AssertionError("too few panels in the parity graph")
+            with torch.no_grad():
+                logits[dev.type] = m(gp, training=False)[:num_nodes].cpu()
+        ref, out = logits["cpu"], logits[device.type]
+        diffs[name] = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"panel {name}: card logits differ from CPU "
+                                 f"logits by {diffs[name]}")
+    print(f"[panel-parity] max |logits_{device.type} - logits_cpu| = "
+          f"{json.dumps(diffs)} ({num_nodes} nodes, {n_panels} panels)")
+    return diffs
+
+
+def timed(phase, *args, **kw):
+    """Run one phase and print how long it took."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs one "
@@ -552,27 +1115,44 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    entries = phase_kernel_check(device)
-    main_info = phase_main_path(device)
-    phase_parity(device)
-    phase_quality(device)
-    entries += phase_gat_kernel_check(device)
-    phase_gat_autograd(device)
-    gat_info = phase_gat_main_path(device)
-    phase_gat_parity(device)
-    phase_gat_quality(device)
+    smi = timed(phase_device)
+    timed(phase_build)
+    entries = timed(phase_kernel_check, device)
+    main_info = timed(phase_main_path, device)
+    timed(phase_parity, device)
+    timed(phase_quality, device)
+    entries += timed(phase_gat_kernel_check, device)
+    timed(phase_gat_autograd, device)
+    gat_info = timed(phase_gat_main_path, device)
+    timed(phase_gat_parity, device)
+    timed(phase_gat_quality, device)
     launches_by = {"spmm_csr": main_info["launches_by"],
                    "gat_pass": gat_info["launches_by"]}
     for e in entries:
         kernel, *case = e.pop("case")
         e["launches"] = launches_by[kernel].get(tuple(case), 0)
+    # the products-scale slice
+    timed(phase_accum_kernel_check, device)
+    timed(phase_panel_autograd, device)
+    timed(phase_gat_accum_check, device)
+    timed(phase_gat_autograd, device, n_panels=CHECK_PANELS)
+    timed(phase_panel_parity, device)
+    kernel_graph.cache_clear()
+    sweep = timed(phase_panel_sweep, device)
+    gcn_info, gcn_entries = timed(phase_products, device, "gcn")
+    gat_prod_info, gat_entries = timed(phase_products, device, "gat")
+    entries += gcn_entries + gat_entries
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
           f"eval_ms={main_info['eval_ms']:.3f}; GAT main path "
           f"train_step_ms={gat_info['train_step_ms']:.3f} "
-          f"eval_ms={gat_info['eval_ms']:.3f} on {smi}")
+          f"eval_ms={gat_info['eval_ms']:.3f}; products GCN step_ms="
+          f"{gcn_info['cached_step_ms']:.1f} (no cache "
+          f"{gcn_info['uncached_step_ms']:.1f}), GAT step_ms="
+          f"{gat_prod_info['step_ms']:.1f} over "
+          f"{gcn_info['panels']} panels; sweep best "
+          f"{min(sweep, key=lambda r: r['step_ms_no_cache'])['panels']} "
+          f"panels on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,215 @@
+"""Benchmark: full-batch GCN / GAT train-step throughput in edges/sec on a
+power-law graph — the port of the full-batch part of the JAX package's
+``bench.py``.
+
+    python -m cogdl_tpu_torch.bench [--model gcn|gat] [--products] [--device cpu]
+
+Measures the whole train step (forward, backward, Adam) on one NVIDIA card
+(``--device cpu`` runs the kernels' plain versions, for rehearsal only) and
+prints one JSON line: ``{"metric": ..., "value": ..., "unit": "edges/sec",
+"step_ms": ..., ...}``. Steps run in a plain loop; the device is
+synchronised before each clock read; the fastest of ``--repeats`` counts.
+
+``--products`` is the ogbn-products-scale configuration (2.45 M nodes,
+average degree 50, about 125 M edges with self loops). It and ``--blocked``
+generate the graph on the device (``powerlaw_graph_device``), build the
+kernels' source-panel structure there (``prepare_spmm_device``, one
+structure for both directions since the graph is undirected) and free the
+raw edge arrays; the aggregation then runs K2 (GCN) or K3's accumulating
+form (GAT) once per panel. Without them the graph comes from the host
+generator and takes the single-shot kernels K1 and K3.
+
+Not ported from the JAX script: ``--sampled`` and its flags (they wait for
+the sampler slice), ``--bf16``, ``--act-compress``, ``--remat``,
+``--reorder*``, and the flags that only switch TPU layouts. The result line
+leaves out ``vs_baseline`` and ``vs_gather_floor``, which compare with
+rates of other hardware.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .data.graph import Graph, add_self_loops, sym_norm
+from .datasets.synthetic import powerlaw_graph, powerlaw_graph_device
+from .models import build_model
+from .ops import cache_propagation
+from .ops.cuda import prepare_spmm, prepare_spmm_device
+from .trainer.trainer import resolve_device
+from .utils.evaluator import masked_cross_entropy
+
+PRODUCTS_NODES, PRODUCTS_AVG_DEGREE = 2_450_000, 50
+
+
+def get_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser("cogdl_tpu_torch.bench", description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--model", default="gcn", choices=("gcn", "gat"))
+    ap.add_argument("--nodes", type=int, default=100_000)
+    ap.add_argument("--avg-degree", type=int, default=30)
+    ap.add_argument("--feat-dim", type=int, default=100)
+    ap.add_argument("--hidden", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--repeats", type=int, default=2,
+                    help="report the fastest of N timed repeats")
+    ap.add_argument("--attn-drop", type=float, default=0.0,
+                    help="GAT attention dropout (runs the in-kernel hash)")
+    ap.add_argument("--products", action="store_true",
+                    help="ogbn-products scale: 2.45M nodes, average degree "
+                    "50; implies the device-built panel structure")
+    ap.add_argument("--blocked", action="store_true",
+                    help="the device-built source-panel structure (the "
+                    "--products path) at any scale")
+    ap.add_argument("--panel-rows", type=int, default=None,
+                    help="source-panel height for --products/--blocked "
+                    "(default: sized by default_panel_rows; 0: no panels)")
+    ap.add_argument("--no-prop-cache", action="store_true",
+                    help="GCN: do not cache the first layer's propagation")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                    "PyTorch versions of the kernels)")
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON result line to this file")
+    return ap
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    args = get_parser().parse_args(argv)
+    if args.products:
+        args.nodes, args.avg_degree = PRODUCTS_NODES, PRODUCTS_AVG_DEGREE
+    return args
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_graph(args: argparse.Namespace, device: torch.device) -> Graph:
+    """The benchmark graph on ``device`` with the kernels' structure: under
+    ``--products``/``--blocked`` generated and prepared on the device, the
+    raw edge arrays freed afterwards (the kernel routes read only the
+    structure); else the host generator's graph with self loops and the
+    symmetric normalisation, prepared by ``prepare_spmm``."""
+    if not (args.products or args.blocked):
+        g = powerlaw_graph(args.nodes, avg_degree=args.avg_degree,
+                           feat_dim=args.feat_dim)
+        return prepare_spmm(sym_norm(add_self_loops(g)).to(device))
+    g = powerlaw_graph_device(args.nodes, avg_degree=args.avg_degree,
+                              feat_dim=args.feat_dim, device=device)
+    g = prepare_spmm_device(g, symmetric=True, with_orig=args.model == "gat",
+                            panel_rows=args.panel_rows)
+    z = torch.zeros(1, dtype=torch.int32, device=device)
+    return g.replace(row=z, col=z,
+                     edge_weight=torch.zeros(1, device=device))
+
+
+def make_model(args: argparse.Namespace, graph: Graph, device: torch.device
+               ) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
+    """The benchmark model (dropout 0; GAT 8 heads of ``hidden // 8``) with
+    weights from seed 0, and Adam at 1e-2."""
+    kw = dict(in_features=args.feat_dim, out_features=graph.num_classes,
+              hidden_size=args.hidden, dropout=0.0)
+    if args.model == "gat":
+        kw.update(nhead=8, hidden_size=args.hidden // 8,
+                  attn_drop=args.attn_drop)
+    model = build_model(args.model, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    return model, torch.optim.Adam(model.parameters(), lr=1e-2)
+
+
+def train_steps(model, optimizer, graph: Graph, steps: int,
+                generator: torch.Generator) -> List[float]:
+    """``steps`` train steps (forward, masked cross-entropy on the train
+    nodes, backward, Adam); returns each step's loss, read after one
+    synchronisation at the end."""
+    mask = graph.train_mask & graph.node_mask()
+    losses = []
+    for _ in range(steps):
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(graph, graph.x, training=True, generator=generator)
+        loss = masked_cross_entropy(logits, graph.y, mask)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+    _sync(graph.device)
+    return [float(x) for x in losses]
+
+
+def time_steps(model, optimizer, graph: Graph, args: argparse.Namespace,
+               generator: torch.Generator) -> float:
+    """Seconds per step: ``--warmup`` steps, then the fastest of
+    ``--repeats`` timed runs of ``--steps`` steps."""
+    train_steps(model, optimizer, graph, args.warmup, generator)
+    best = float("inf")
+    for _ in range(max(args.repeats, 1)):
+        t0 = time.perf_counter()
+        train_steps(model, optimizer, graph, args.steps, generator)
+        best = min(best, time.perf_counter() - t0)
+    return best / args.steps
+
+
+def run(args: argparse.Namespace) -> Dict[str, Any]:
+    """Build the graph and model and measure; returns the result line's
+    payload."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    graph = make_graph(args, device)
+    graph_uncached = None
+    if args.model == "gcn" and not args.no_prop_cache:
+        # exact first-layer folding (dropout is 0 here): P = ÂX and s = Â1
+        # do not change between steps, so layer 1 needs no SpMM
+        graph_uncached, graph = graph, cache_propagation(graph)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    model, optimizer = make_model(args, graph, device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    dt = time_steps(model, optimizer, graph, args, generator)
+    payload = {
+        "metric": f"{args.model.upper()} train-step edges/sec (1 device, "
+                  f"powerlaw {args.nodes}n x{args.avg_degree}, "
+                  f"F={args.feat_dim})",
+        "value": round(graph.num_edges / dt),
+        "unit": "edges/sec",
+        "step_ms": round(1000 * dt, 2),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "blocked_layout": bool(args.products or args.blocked),
+        "prop_cache": graph_uncached is not None,
+        "panel_rows": int(graph.meta_get("spmm_panel_rows", 0)),
+        "setup_s": round(setup_s, 2),
+    }
+    if graph_uncached is not None:
+        # the cache holds only with zero input dropout: also report the
+        # step of the same weights on the uncached graph
+        dt2 = time_steps(model, optimizer, graph_uncached, args, generator)
+        payload["step_ms_no_cache"] = round(1000 * dt2, 2)
+        payload["edges_per_sec_no_cache"] = round(graph.num_edges / dt2)
+    if device.type == "cuda":
+        payload["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return payload
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Entry point for ``python -m cogdl_tpu_torch.bench``."""
+    args = parse_args(argv)
+    payload = run(args)
+    line = json.dumps(payload)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return payload
+
+
+if __name__ == "__main__":
+    main()

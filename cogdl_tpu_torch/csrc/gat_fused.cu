@@ -11,7 +11,9 @@
 //   m     = lrelu(sd[r,h] + smax[h])      (smax = max of ss over all rows: an
 //                                          exact bound of the row's scores)
 //   ex    = exp(pre * slope - m)
-//   keep  = murmur-style hash of (orig[e] ^ seed, h) < threshold ? 1/(1-p) : 0
+//   keep  = murmur-style hash of (key[e], h) < threshold ? 1/(1-p) : 0
+//           key[e] = orig[e] ^ seed                              (edge-id key)
+//                 or (r * 0x9E3779B1) ^ (c * 0x85EBCA77) ^ seed  (coordinate key)
 //
 //   mode fwd  (grouped by r, CSR):  num[r] = sum_e ex*keep*h2[c]
 //                                   den[r] = sum_e ex
@@ -25,7 +27,17 @@
 // spread over 128 lanes. None of that is part of the function. Here the
 // gathers happen inside the kernel and no per-edge tensor reaches memory;
 // the dropout mask is hashed in registers from the edge's position in the
-// graph's edge list, bit for bit as the TPU kernel hashes it (:819-828).
+// graph's edge list, bit for bit as the TPU kernel hashes it (:819-828), or,
+// as that kernel does on its blocked layouts (:806-817), from the edge's
+// (dst, src) coordinates, which needs no stored edge ids.
+//
+// The accumulating form (the TPU kernel's `acc` operand, :1043-1075, driven
+// once per mega-block of a source panel by `_gat_apply`, :1104-1160): with
+// `accum` set, `ptr` holds one panel's row pointers of a panel-major CSR
+// (offsets into the flat idx, global indices), the sums are added to what
+// out_vec and out_head hold, and a row without edges in the panel is left
+// untouched. The softmax shift m does not depend on the panel, so the
+// partial sums of all panels add up to the single-shot result.
 //
 // What bounds it on an H100: bytes. Per row it reads its edges' indices (and
 // orig ids under dropout), one H2 (or dagg) row and a few H-wide score rows
@@ -82,12 +94,14 @@ struct GatArgs {
   float alpha, inv_keep;
   unsigned thresh;
   int drop;
+  int coord_key;           // hash the (dst, src) coordinates, not orig
+  int accum;               // add into out_vec / out_head, skip empty rows
 };
 
-__device__ __forceinline__ float keep_scale(unsigned orig, unsigned seed,
-                                            unsigned H, unsigned h,
-                                            unsigned thresh, float inv_keep) {
-  unsigned hx = (orig ^ seed) * H + h;
+__device__ __forceinline__ float keep_scale(unsigned key, unsigned H,
+                                            unsigned h, unsigned thresh,
+                                            float inv_keep) {
+  unsigned hx = key * H + h;
   hx = hx * 747796405u + 2891336453u;
   hx ^= hx >> 16;
   hx *= 0x85EBCA6Bu;
@@ -146,6 +160,7 @@ gat_pass_kernel(const GatArgs a) {
   if (row >= a.n_rows) return;                  // warp-uniform
   const int start = a.ptr[row];
   const int end = a.ptr[row + 1];
+  if (a.accum && start >= end) return;          // the outputs keep this row
   const unsigned seed = a.drop ? static_cast<unsigned>(*a.seed) : 0u;
   const int units = H * D / VEC;                // T-wide columns of a row
   const int chunk = NG * 32;
@@ -172,7 +187,7 @@ gat_pass_kernel(const GatArgs a) {
       int my_nbr = 0, my_orig = 0;
       if (lane < nb) {
         my_nbr = __ldg(a.idx + e0 + lane);
-        if (a.drop) my_orig = __ldg(a.orig + e0 + lane);
+        if (a.drop && !a.coord_key) my_orig = __ldg(a.orig + e0 + lane);
       }
       // score the batch's (edge, head) pairs, pair p = edge j * H + head h
       const int npair = nb * H;
@@ -193,8 +208,12 @@ gat_pass_kernel(const GatArgs a) {
           const float ex = expf(pre * slope - m);
           float exk = ex;
           if (a.drop) {
-            const float kv = keep_scale(static_cast<unsigned>(org), seed,
-                                        H, h, a.thresh, a.inv_keep);
+            const unsigned key =
+                a.coord_key ? (static_cast<unsigned>(dst) * 0x9E3779B1u) ^
+                                  (static_cast<unsigned>(src) * 0x85EBCA77u) ^
+                                  seed
+                            : static_cast<unsigned>(org) ^ seed;
+            const float kv = keep_scale(key, H, h, a.thresh, a.inv_keep);
             exk = ex * kv;
             if (a.keep_out != nullptr && first)
               a.keep_out[(size_t)(e0 + j) * H + h] = kv;
@@ -239,8 +258,12 @@ gat_pass_kernel(const GatArgs a) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int u = u0 + g * 32 + lane;
-      if (MODE != kDsd && head[g] >= 0)
-        reinterpret_cast<T*>(a.out_vec)[(size_t)row * units + u] = acc_a[g];
+      if (MODE != kDsd && head[g] >= 0) {
+        T* dst = reinterpret_cast<T*>(a.out_vec) + (size_t)row * units + u;
+        T v = acc_a[g];
+        if (a.accum) vfma(v, 1.f, *dst);
+        *dst = v;
+      }
       if (MODE != kFwd) {
         float d = 0.f;
         if (head[g] >= 0)
@@ -265,7 +288,8 @@ gat_pass_kernel(const GatArgs a) {
       v = head_dot + __ldg(a.dden + (size_t)row * H + lane) * head_sum;
     else if (MODE == kDsrc)
       v = head_dot + head_sum;
-    a.out_head[(size_t)row * H + lane] = v;
+    float* dst = a.out_head + (size_t)row * H + lane;
+    *dst = a.accum ? *dst + v : v;
   }
 }
 
@@ -309,8 +333,9 @@ bool aligned16(const void* p) {
 // 2 = dsrc. Tables are fp32 row-major; a mode reads and writes only its own
 // (fwd: sd ss smax h2 -> out_vec=num, out_head=den; dsd: sd ss smax h2 dagg
 // dden -> out_head=dsd; dsrc: the same inputs -> out_vec=dh2, out_head=dss).
-// `orig` and `seed` are read only when drop != 0; keep_out may be null.
-// Returns the cudaError_t of the launch (0 on success); 1 (invalid value)
+// `seed` is read only when drop != 0, `orig` only when drop != 0 and
+// coord_key == 0; keep_out may be null. With accum != 0 the outputs are
+// added to and rows without edges are skipped. Returns the cudaError_t of the launch (0 on success); 1 (invalid value)
 // for an unknown mode or H outside [1, 32].
 extern "C" int gat_pass_f32(int mode, const int* ptr, const int* idx,
                             const int* orig, const long long* seed,
@@ -320,13 +345,13 @@ extern "C" int gat_pass_f32(int mode, const int* ptr, const int* idx,
                             float* out_vec, float* out_head, float* keep_out,
                             int n_rows, int H, int D, float alpha,
                             float inv_keep, unsigned thresh, int drop,
-                            void* stream) {
+                            int coord_key, int accum, void* stream) {
   if (n_rows <= 0) return 0;
   if (H < 1 || H > 32 || D < 1 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const GatArgs a{ptr, idx, orig, seed, sd, ss, smax, h2, dagg, dden,
                   out_vec, out_head, keep_out, n_rows, H, D, alpha,
-                  inv_keep, thresh, drop};
+                  inv_keep, thresh, drop, coord_key, accum};
   const bool vec4 = D % 4 == 0 && aligned16(h2) &&
                     (dagg == nullptr || aligned16(dagg)) &&
                     (out_vec == nullptr || aligned16(out_vec));

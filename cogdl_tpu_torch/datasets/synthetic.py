@@ -1,14 +1,17 @@
-"""Synthetic graph generators — the port of the ``sbm_graph`` and
-``powerlaw_graph`` halves of ``cogdl_tpu/datasets/synthetic.py``.
+"""Synthetic graph generators — the port of the ``sbm_graph``,
+``powerlaw_graph`` and ``powerlaw_graph_device`` parts of
+``cogdl_tpu/datasets/synthetic.py``.
 
-Both draw from ``np.random.default_rng(seed)`` with the same calls in the
-same order as the JAX package, so the same arguments give the same graph in
-both packages.
+The two host generators draw from ``np.random.default_rng(seed)`` with the
+same calls in the same order as the JAX package, so the same arguments give
+the same graph in both packages. ``powerlaw_graph_device`` draws on the
+device from a ``torch.Generator``: the same law, other numbers.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..data.graph import Graph, add_self_loops, from_coo, to_undirected
 
@@ -106,4 +109,83 @@ def powerlaw_graph(
         val_mask=~train_mask,
         test_mask=~train_mask,
         meta={"num_classes": num_classes, "name": f"powerlaw{num_nodes}"},
+    )
+
+
+def powerlaw_graph_device(
+    num_nodes: int,
+    avg_degree: int = 15,
+    feat_dim: int = 128,
+    num_classes: int = 47,
+    seed: int = 0,
+    undirected: bool = True,
+    zipf_a: float = 0.8,
+    pad_multiple: int = 128,
+    device="cuda",
+) -> Graph:
+    """Power-law graph generated and laid out on ``device`` (the
+    ogbn-products stand-in of the products-scale benchmark): edge sampling,
+    the CSR sort, ``row_ptr``, the symmetric normalisation and the features
+    all run there, drawn from one ``torch.Generator`` on that device seeded
+    with ``seed``. Only the ``[num_nodes]`` Zipf CDF is computed on the host
+    (float64 for the cumulative sum) and copied over as float32.
+
+    Destinations follow the Zipf law, sources are uniform;
+    ``undirected=True`` mirrors every sampled edge, so ``Aᵀ = A`` and the
+    backward SpMM can share the forward's structure
+    (``prepare_spmm_device(symmetric=True)``). Self loops are appended and
+    the symmetric normalisation is folded into ``edge_weight``
+    (``meta["norm"] == "sym"``); parallel edges are kept. ``n_pad`` is
+    ``num_nodes`` rounded up to ``pad_multiple`` and the edge arrays carry no
+    padding (``e_pad == num_edges``)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_pad = -(-num_nodes // pad_multiple) * pad_multiple
+    n_directed = (num_nodes * avg_degree) // (2 if undirected else 1)
+
+    ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
+    probs = ranks ** -zipf_a
+    cdf = torch.from_numpy(
+        np.cumsum(probs / probs.sum()).astype(np.float32)).to(device)
+
+    u = torch.rand(n_directed, generator=gen, device=device)
+    dst = torch.searchsorted(cdf, u).clamp_(max=num_nodes - 1).int()
+    del u, cdf
+    src = torch.randint(0, num_nodes, (n_directed,), generator=gen,
+                        device=device, dtype=torch.int32)
+    loops = torch.arange(num_nodes, dtype=torch.int32, device=device)
+    if undirected:
+        row = torch.cat([dst, src, loops])
+        col = torch.cat([src, dst, loops])
+    else:
+        row = torch.cat([dst, loops])
+        col = torch.cat([src, loops])
+    del dst, src, loops
+    row, order = torch.sort(row, stable=True)
+    col = col[order]
+    del order
+    counts = torch.bincount(row, minlength=n_pad)
+    row_ptr = torch.zeros(n_pad + 1, dtype=torch.int64, device=device)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    # symmetric normalisation folded into the weights (D^-1/2 A D^-1/2)
+    deg = counts.float()
+    inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)),
+                           torch.zeros_like(deg))
+    w = inv_sqrt[row.long()]
+    w *= inv_sqrt[col.long()]
+
+    x = torch.randn(n_pad, feat_dim, generator=gen, device=device)
+    y = torch.randint(0, num_classes, (n_pad,), generator=gen, device=device,
+                      dtype=torch.int32)
+    node_ok = torch.arange(n_pad, device=device) < num_nodes
+    train_mask = (torch.rand(n_pad, generator=gen, device=device) < 0.1) & node_ok
+    return Graph(
+        row_ptr=row_ptr.int(), row=row, col=col, edge_weight=w,
+        num_nodes=num_nodes, num_edges=int(row.numel()),
+        x=x, y=y, train_mask=train_mask,
+        val_mask=~train_mask & node_ok, test_mask=~train_mask & node_ok,
+        meta=tuple(sorted({
+            "num_classes": num_classes, "norm": "sym", "self_loops": True,
+            "symmetric": bool(undirected),
+            "name": f"powerlaw{num_nodes}-dev"}.items())),
     )

@@ -4,7 +4,11 @@
 stores it in ``graph.extras``; ``maybe_cuda_spmm`` then routes ``spmm``
 through the hand-written CUDA CSR kernel (K1) and ``maybe_cuda_gat_fused``
 routes GAT attention through the fused attention kernel (K3) for CUDA
-tensors.
+tensors. ``device_layout.prepare_spmm_device`` builds the structure on the
+graph's own device, optionally grouped by source panel; both store it under
+the same ``spmm_fw_*``/``spmm_bw_*`` names, and ``meta["spmm_panel_rows"]``
+tells the dispatchers which it is: 0, one CSR per direction (K1, K3
+single-shot); above 0, a panel-major CSR (K2, K3 accumulating).
 """
 
 from __future__ import annotations
@@ -13,13 +17,21 @@ from typing import Optional
 
 import torch
 
+from .device_layout import (  # noqa: F401  (public kernel-tier re-exports)
+    build_spmm_structure,
+    default_panel_rows,
+    prepare_spmm_device,
+)
 from .segment_kernels import (  # noqa: F401  (public kernel-tier re-exports)
     GAT_MAX_HEADS,
     GATFusedFunction,
     SpMMFunction,
+    SpMMPanelFunction,
     gat_pass,
     gat_pass_reference,
     spmm_csr,
+    spmm_csr_accum,
+    spmm_csr_accum_reference,
     spmm_csr_reference,
 )
 
@@ -65,23 +77,41 @@ def prepare_spmm(graph):
         "spmm_bw_w": w[order].contiguous(),
         "spmm_bw_orig": order.int().contiguous(),
     })
-    return graph.replace(extras=extras)
+    return graph.replace(extras=extras).with_meta(spmm_panel_rows=0)
+
+
+def _panel_route(graph) -> bool:
+    """Whether the graph's structure is a panel-major CSR, by its meta; the
+    row pointers' rank must agree."""
+    panels = int(graph.meta_get("spmm_panel_rows", 0)) > 0
+    if panels != (graph.extras["spmm_fw_ptr"].ndim == 2):
+        raise ValueError(
+            f"meta spmm_panel_rows={graph.meta_get('spmm_panel_rows', 0)} "
+            f"does not match the rank of extras['spmm_fw_ptr'] "
+            f"({graph.extras['spmm_fw_ptr'].ndim}): the graph's structure "
+            "was not attached by prepare_spmm or prepare_spmm_device")
+    return panels
 
 
 def maybe_cuda_spmm(graph, x: torch.Tensor) -> Optional[torch.Tensor]:
-    """K1 through :class:`SpMMFunction` when the graph carries the prepared
-    structure. A CPU tensor without the structure returns None (the caller
-    takes the plain tier); a CUDA tensor without it raises."""
+    """K1 through :class:`SpMMFunction`, or K2 through
+    :class:`SpMMPanelFunction` over a panel structure, when the graph
+    carries the prepared structure with its weights. A CPU tensor without
+    it returns None (the caller takes the plain tier); a CUDA tensor
+    without it raises."""
     extras = graph.extras
-    if not extras or "spmm_fw_ptr" not in extras:
+    if not extras or "spmm_fw_w" not in extras:
         if x.is_cuda:
             raise RuntimeError(
                 "spmm on a CUDA tensor runs the CSR kernel, which needs the "
-                "structure from cogdl_tpu_torch.ops.cuda.prepare_spmm(graph)")
+                "structure from cogdl_tpu_torch.ops.cuda.prepare_spmm(graph) "
+                "or prepare_spmm_device(graph), with its weights "
+                "(store_w=True)")
         return None
     if x.ndim != 2:
         raise ValueError(f"spmm takes [n_pad, F] features, got {tuple(x.shape)}")
-    return SpMMFunction.apply(x, *(extras[k] for k in _KEYS))
+    fn = SpMMPanelFunction if _panel_route(graph) else SpMMFunction
+    return fn.apply(x, *(extras[k] for k in _KEYS))
 
 
 _GAT_KEYS = ("spmm_fw_ptr", "spmm_fw_col", "spmm_fw_orig",
@@ -95,7 +125,10 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
                          ) -> Optional[torch.Tensor]:
     """Fused GAT attention (scores, softmax, dropout, aggregation) through
     K3 and :class:`GATFusedFunction` when the graph carries the prepared
-    structure — the counterpart of ``maybe_gat_fused``. ``h`` is
+    structure — the counterpart of ``maybe_gat_fused``. A panel structure
+    takes K3's accumulating form, one pass per panel with the
+    coordinate-keyed dropout hash (parallel edges then share one keep/drop
+    decision, as in the JAX package), and needs no ``spmm_*_orig``. ``h`` is
     ``[n_pad, H, D]``, the score halves ``[n_pad, H]``; ``score_src`` must
     equal ``Σ_d a_src·h``. With ``attn_drop > 0`` one seed in
     ``[0, 2³¹ − 1)`` is drawn from ``generator`` per call. Returns
@@ -103,12 +136,14 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
     structure (the caller takes the unfused route); raises for a CUDA
     tensor without it."""
     extras = graph.extras
-    if not extras or "spmm_fw_orig" not in extras:
+    if not extras or "spmm_fw_ptr" not in extras or not (
+            _panel_route(graph) or "spmm_fw_orig" in extras):
         if h.is_cuda:
             raise RuntimeError(
                 "GAT attention on a CUDA tensor runs the fused attention "
                 "kernel, which needs the structure from "
-                "cogdl_tpu_torch.ops.cuda.prepare_spmm(graph)")
+                "cogdl_tpu_torch.ops.cuda.prepare_spmm(graph) or "
+                "prepare_spmm_device(graph, with_orig=True)")
         return None
     H, D = h.shape[1], h.shape[2]
     if H > GAT_MAX_HEADS:
@@ -119,6 +154,6 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=h.device)
     out = GATFusedFunction.apply(score_dst, score_src, h.reshape(-1, H * D),
-                                 *(extras[k] for k in _GAT_KEYS), seed,
+                                 *(extras.get(k) for k in _GAT_KEYS), seed,
                                  float(alpha), float(attn_drop))
     return out.view(-1, H, D)

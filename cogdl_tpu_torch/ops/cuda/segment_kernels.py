@@ -1,19 +1,28 @@
-"""K1 (the CSR SpMM) and K3 (the fused GAT attention pass), with their
-plain versions, autograd rules and loader — the port of
-``cogdl_tpu/ops/pallas/segment_kernels.py`` for the GCN and GAT slices.
+"""K1 (the CSR SpMM), K2 (the accumulating CSR SpMM) and K3 (the fused GAT
+attention pass), with their plain versions, autograd rules and loader — the
+port of ``cogdl_tpu/ops/pallas/segment_kernels.py`` for the GCN, GAT and
+products-scale slices.
 
 K1 (``cogdl_tpu_torch/csrc/spmm_csr.cu``) replaces the Pallas
 ``sorted_segment_matmul`` (``cogdl_tpu/ops/pallas/segment_kernels.py:294``).
 It computes ``out[r] = Σ_{e in row r} w[e] · x[col[e]]`` over a CSR
 structure with the gather fused in.
 
+K2 (``cogdl_tpu_torch/csrc/spmm_csr_accum.cu``) replaces
+``sorted_segment_matmul_accum`` (``segment_kernels.py:244``): the same sum
+added in place to a running output, ``acc[r] += Σ …``, one call per source
+panel of the panel-major CSR that ``device_layout`` builds; rows without an
+edge in the panel keep their values.
+
 K3 (``cogdl_tpu_torch/csrc/gat_fused.cu``) replaces ``_gat_pass``
 (``segment_kernels.py:975``, kernel body ``_make_gat_pass_kernel``): the
 fused GAT scores + softmax + aggregation pass in three modes, ``fwd`` and
 ``dsd`` over the CSR (grouped by destination) and ``dsrc`` over the CSC
 (grouped by source), with the attention-dropout hash of the TPU kernel bit
-for bit. Both are bound by bytes on the H100; their sources say what the
-simple designs do about that.
+for bit, keyed on the edge's id or on its (dst, src) coordinates, and
+either single-shot or accumulating over the panels of a panel-major CSR. All
+three are bound by bytes on the H100; their sources say what the simple
+designs do about that.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first use,
 one ``nvcc`` a source, all started together, and linked into one library in
@@ -21,8 +30,9 @@ one ``nvcc`` a source, all started together, and linked into one library in
 sources and flags, bound through ``ctypes`` (plain C interface, no PyTorch
 headers, so a build takes seconds).
 
-``spmm_csr`` and ``gat_pass`` take their plain versions only for CPU
-tensors. A CUDA tensor launches the kernel or raises: there is no fallback.
+``spmm_csr``, ``spmm_csr_accum`` and ``gat_pass`` take their plain versions
+only for CPU tensors. A CUDA tensor launches the kernel or raises: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -120,12 +130,15 @@ def load_library() -> ctypes.CDLL:
     lib.spmm_csr_f32.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.spmm_csr_f32.restype = ctypes.c_int
+    lib.spmm_csr_accum_f32.argtypes = lib.spmm_csr_f32.argtypes
+    lib.spmm_csr_accum_f32.restype = ctypes.c_int
     lib.gat_pass_f32.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 13
         + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_uint32] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.gat_pass_f32.restype = ctypes.c_int
-    for name in ("spmm_csr_error_string", "gat_pass_error_string"):
+    for name in ("spmm_csr_error_string", "spmm_csr_accum_error_string",
+                 "gat_pass_error_string"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
@@ -145,35 +158,40 @@ def spmm_csr_reference(row_ptr: torch.Tensor, col: torch.Tensor,
     return x.new_zeros((n, x.shape[1])).index_add(0, row, msg)
 
 
-def _check_launch_args(row_ptr, col, w, x):
+def _check_launch_args(row_ptr, col, w, x, acc=None, fn="spmm_csr"):
     dev = x.device
-    for name, t, dtype, ndim in (("row_ptr", row_ptr, torch.int32, 1),
-                                 ("col", col, torch.int32, 1),
-                                 ("w", w, torch.float32, 1),
-                                 ("x", x, torch.float32, 2)):
+    tensors = [("row_ptr", row_ptr, torch.int32, 1),
+               ("col", col, torch.int32, 1), ("w", w, torch.float32, 1),
+               ("x", x, torch.float32, 2)]
+    if acc is not None:
+        tensors.append(("acc", acc, torch.float32, 2))
+    for name, t, dtype, ndim in tensors:
         if t.device != dev:
-            raise ValueError(f"spmm_csr: {name} is on {t.device}, x on {dev}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, x on {dev}")
         if t.dtype != dtype:
-            raise TypeError(f"spmm_csr: {name} must be {dtype}, got {t.dtype}")
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
         if t.ndim != ndim:
-            raise ValueError(f"spmm_csr: {name} must be {ndim}-D, got "
+            raise ValueError(f"{fn}: {name} must be {ndim}-D, got "
                              f"shape {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"spmm_csr: {name} must be contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
     if col.numel() != w.numel():
-        raise ValueError(f"spmm_csr: col has {col.numel()} entries, "
+        raise ValueError(f"{fn}: col has {col.numel()} entries, "
                          f"w {w.numel()}")
     if x.shape[0] != row_ptr.numel() - 1:
         raise ValueError(
-            f"spmm_csr: the matrix is square over {row_ptr.numel() - 1} "
+            f"{fn}: the matrix is square over {row_ptr.numel() - 1} "
             f"rows, x has {x.shape[0]}")
+    if acc is not None and acc.shape != x.shape:
+        raise ValueError(f"{fn}: acc must be {tuple(x.shape)} as x, got "
+                         f"{tuple(acc.shape)}")
     if max(x.numel(), col.numel()) >= 2 ** 31:
-        raise ValueError("spmm_csr: int32 offsets overflow at this size")
+        raise ValueError(f"{fn}: int32 offsets overflow at this size")
 
 
 def reset_launch_counts() -> None:
-    """Set K1's and K3's launch counters to 0."""
-    for fn in (spmm_csr, gat_pass):
+    """Set K1's, K2's and K3's launch counters to 0."""
+    for fn in (spmm_csr, spmm_csr_accum, gat_pass):
         fn.launches = 0
         fn.launches_by.clear()
 
@@ -253,6 +271,120 @@ class SpMMFunction(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# K2: the accumulating CSR SpMM, one call per source panel
+# ---------------------------------------------------------------------------
+
+# edges the plain versions handle at a time: bounds their [edges, F] message
+# tensor at sizes where one panel holds tens of millions of edges
+_REFERENCE_EDGE_CHUNK = 1 << 21
+
+
+def panel_edges(row_ptr: torch.Tensor):
+    """``(lo, row)`` of one grouping: the offset of its first edge in the
+    flat arrays and the grouping row of each of its edges, in order."""
+    n = row_ptr.numel() - 1
+    row = torch.repeat_interleave(
+        torch.arange(n, device=row_ptr.device),
+        (row_ptr[1:] - row_ptr[:-1]).long())
+    return int(row_ptr[0]), row
+
+
+def spmm_csr_accum_reference(acc: torch.Tensor, row_ptr: torch.Tensor,
+                             col: torch.Tensor, w: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: gather + ``index_add_`` into ``acc``, in
+    place, over the edges ``[row_ptr[0], row_ptr[-1])`` of the flat ``col``
+    and ``w``, a slice of edges at a time. The CPU path and the tests use
+    it; on the card it is the yardstick of correctness only."""
+    lo, row = panel_edges(row_ptr)
+    for a in range(0, row.numel(), _REFERENCE_EDGE_CHUNK):
+        r = row[a: a + _REFERENCE_EDGE_CHUNK]
+        e = slice(lo + a, lo + a + r.numel())
+        acc.index_add_(0, r, x.index_select(0, col[e].long())
+                       * w[e].unsqueeze(-1))
+    return acc
+
+
+def spmm_csr_accum(acc: torch.Tensor, row_ptr: torch.Tensor,
+                   col: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                   structure: str = "csr") -> torch.Tensor:
+    """``acc[r] += Σ_{e in [row_ptr[r], row_ptr[r+1])} w[e] · x[col[e]]`` in
+    place; returns ``acc``. A row whose range is empty keeps its values bit
+    for bit.
+
+    ``row_ptr`` is one panel's row of the panel-major CSR: int32 offsets
+    into the flat ``col`` (int32, global indices) and ``w`` (float32).
+    ``x`` and ``acc`` are float32 ``[n, F]`` with ``n = row_ptr.numel() -
+    1``, contiguous, and must not share memory. CUDA tensors run K2 on the
+    current stream; CPU tensors run :func:`spmm_csr_accum_reference`.
+
+    Each launch adds one to ``spmm_csr_accum.launches`` and to
+    ``spmm_csr_accum.launches_by[(structure, F)]``; ``structure`` names what
+    the caller passes, ``"csr"`` (A) or ``"csc"`` (Aᵀ), and only keys that
+    count."""
+    if not x.is_cuda:
+        return spmm_csr_accum_reference(acc, row_ptr, col, w, x)
+    _check_launch_args(row_ptr, col, w, x, acc, fn="spmm_csr_accum")
+    n, F = x.shape
+    if n == 0 or F == 0:
+        return acc
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.spmm_csr_accum_f32(row_ptr.data_ptr(), col.data_ptr(),
+                                     w.data_ptr(), x.data_ptr(),
+                                     acc.data_ptr(), n, F, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"spmm_csr_accum kernel launch failed: CUDA error {err} "
+            f"({lib.spmm_csr_accum_error_string(err).decode()})")
+    spmm_csr_accum.launches += 1
+    spmm_csr_accum.launches_by[(structure, F)] += 1
+    return acc
+
+
+spmm_csr_accum.launches = 0
+spmm_csr_accum.launches_by = collections.Counter()
+
+
+class SpMMPanelFunction(torch.autograd.Function):
+    """``Y = A X`` over a panel-major CSR through K2: the forward starts
+    from zeros and runs K2 once per panel of the forward structure, the
+    backward ``dX = Aᵀ G`` once per panel of the backward structure (the
+    same tensors when the structure was prepared ``symmetric``), and ``dw``
+    — only when asked for — as the plain SDDMM, as :class:`SpMMFunction`.
+
+    Inputs as :class:`SpMMFunction`, with ``fw_ptr``/``bw_ptr``
+    ``[n_panels, n + 1]``; ``dw`` is in the flat (panel-major) order of
+    ``fw_w``."""
+
+    @staticmethod
+    def forward(ctx, x, fw_ptr, fw_col, fw_w, bw_ptr, bw_col, bw_w):
+        x = x.contiguous()
+        ctx.save_for_backward(x if ctx.needs_input_grad[3] else None,
+                              fw_ptr, fw_col, bw_ptr, bw_col, bw_w)
+        out = torch.zeros_like(x)
+        for ptr in fw_ptr:
+            spmm_csr_accum(out, ptr, fw_col, fw_w, x, structure="csr")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, fw_ptr, fw_col, bw_ptr, bw_col, bw_w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.zeros_like(g)
+            for ptr in bw_ptr:
+                spmm_csr_accum(dx, ptr, bw_col, bw_w, g, structure="csc")
+        if ctx.needs_input_grad[3]:
+            row = torch.cat([panel_edges(ptr)[1] for ptr in fw_ptr])
+            dw = (g.index_select(0, row)
+                  * x.index_select(0, fw_col.long())).sum(-1)
+        return dx, None, None, dw, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # K3: the fused GAT attention pass
 # ---------------------------------------------------------------------------
 
@@ -276,16 +408,25 @@ def _drop_params(attn_drop: float) -> Tuple[int, float]:
     return thresh, inv_keep
 
 
-def dropout_keep_reference(orig: torch.Tensor, seed: torch.Tensor, H: int,
-                           attn_drop: float) -> torch.Tensor:
+def dropout_keep_reference(orig: Optional[torch.Tensor], seed: torch.Tensor,
+                           H: int, attn_drop: float,
+                           dst: Optional[torch.Tensor] = None,
+                           src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3's attention-dropout scales ``[nnz, H]``: ``1/(1-p)`` where the
     edge and head are kept, else 0. The hash of the TPU kernel
-    (``segment_kernels.py:819-828``) in int64 arithmetic mod 2³²: key
-    ``uint32(orig) ^ seed``, then ``key·H + h`` through a multiply-add and
-    the murmur3 finaliser."""
+    (``segment_kernels.py:806-828``) in int64 arithmetic mod 2³²: the key is
+    ``uint32(orig) ^ seed`` or, when ``dst`` and ``src`` are given (the
+    coordinate key of the panel route), ``dst·0x9E3779B1 ^ src·0x85EBCA77 ^
+    seed``; then ``key·H + h`` through a multiply-add and the murmur3
+    finaliser."""
     thresh, inv_keep = _drop_params(attn_drop)
-    ek = (orig.long() & _M32) ^ (seed.long().reshape(()) & _M32)
-    hx = (ek[:, None] * H + torch.arange(H, device=orig.device)) & _M32
+    sv = seed.long().reshape(()) & _M32
+    if dst is not None:
+        ek = (_mul32(dst.long() & _M32, 0x9E3779B1)
+              ^ _mul32(src.long() & _M32, 0x85EBCA77) ^ sv)
+    else:
+        ek = (orig.long() & _M32) ^ sv
+    hx = (ek[:, None] * H + torch.arange(H, device=ek.device)) & _M32
     hx = (_mul32(hx, 747796405) + 2891336453) & _M32
     hx = hx ^ (hx >> 16)
     hx = _mul32(hx, 0x85EBCA6B)
@@ -295,10 +436,17 @@ def dropout_keep_reference(orig: torch.Tensor, seed: torch.Tensor, H: int,
     return torch.where(hx < thresh, inv_keep, 0.0).float()
 
 
+def gat_output_widths(mode: str, H: int, HD: int) -> Tuple[int, ...]:
+    """Column counts of a K3 pass's outputs: ``(num, den)`` for ``fwd``,
+    ``(dsd,)`` for ``dsd``, ``(dh2, dss)`` for ``dsrc``."""
+    return (H,) if mode == "dsd" else (HD, H)
+
+
 def gat_pass_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
                        dagg=None, dden=None, *, alpha: float,
                        attn_drop: float = 0.0, seed=None,
-                       with_keep: bool = False):
+                       with_keep: bool = False, acc=None,
+                       coord_key: bool = False):
     """Plain PyTorch version of K3 with gathers and ``index_add``, per edge
     in the order of the JAX kernel's formulas (``segment_kernels.py:642-970``).
     The CPU path and the tests use it; on the card it is the yardstick of
@@ -306,40 +454,48 @@ def gat_pass_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
     n, H = ptr.numel() - 1, sd.shape[1]
     HD = h2.shape[1]
     D = HD // H
-    grp = torch.repeat_interleave(torch.arange(n, device=sd.device),
-                                  (ptr[1:] - ptr[:-1]).long())
-    E = grp.numel()
-    nbr = idx[:E].long()
-    dst, src = (nbr, grp) if mode == "dsrc" else (grp, nbr)
-    sd_e = sd.index_select(0, dst)
-    pre = sd_e + ss.index_select(0, src)
-    slope = torch.where(pre > 0, 1.0, alpha)
-    m = sd_e + smax
-    m = torch.where(m > 0, m, alpha * m)
-    ex = torch.exp(pre * slope - m)
-    keep = (dropout_keep_reference(orig[:E], seed, H, attn_drop)
-            if attn_drop > 0.0 else None)
-    exn = ex if keep is None else ex * keep
-    if mode == "fwd":
-        msg = h2.index_select(0, src).view(E, H, D) * exn[:, :, None]
-        outs = (h2.new_zeros((n, HD)).index_add(0, grp, msg.view(E, HD)),
-                sd.new_zeros((n, H)).index_add(0, grp, ex))
-    else:
-        dagg_e = dagg.index_select(0, dst).view(E, H, D)
-        dex = (dagg_e * h2.index_select(0, src).view(E, H, D)).sum(-1)
-        if keep is not None:
-            dex = dex * keep
-        ds = (dex + dden.index_select(0, dst)) * ex * slope
-        dhead = sd.new_zeros((n, H)).index_add(0, grp, ds)
-        if mode == "dsd":
-            outs = (dhead,)
+    lo, grp_all = panel_edges(ptr)
+    # added to in place: rows without an edge here keep their values
+    outs = acc if acc is not None else tuple(
+        sd.new_zeros((n, w)) for w in gat_output_widths(mode, H, HD))
+    out_vec, out_head = (None, *outs) if mode == "dsd" else outs
+    keep_all = sd.new_zeros((idx.numel(), H)) if with_keep else None
+    # a slice of edges at a time bounds the [edges, H·D] temporaries
+    for a in range(0, grp_all.numel(), _REFERENCE_EDGE_CHUNK):
+        grp = grp_all[a: a + _REFERENCE_EDGE_CHUNK]
+        E = grp.numel()
+        e = slice(lo + a, lo + a + E)
+        nbr = idx[e].long()
+        dst, src = (nbr, grp) if mode == "dsrc" else (grp, nbr)
+        sd_e = sd.index_select(0, dst)
+        pre = sd_e + ss.index_select(0, src)
+        slope = torch.where(pre > 0, 1.0, alpha)
+        m = sd_e + smax
+        m = torch.where(m > 0, m, alpha * m)
+        ex = torch.exp(pre * slope - m)
+        keep = None
+        if attn_drop > 0.0 and coord_key:
+            keep = dropout_keep_reference(None, seed, H, attn_drop, dst, src)
+        elif attn_drop > 0.0:
+            keep = dropout_keep_reference(orig[e], seed, H, attn_drop)
+        exn = ex if keep is None else ex * keep
+        if mode == "fwd":
+            msg = h2.index_select(0, src).view(E, H, D) * exn[:, :, None]
+            out_vec.index_add_(0, grp, msg.view(E, HD))
+            out_head.index_add_(0, grp, ex)
         else:
-            dh2 = h2.new_zeros((n, HD)).index_add(
-                0, grp, (dagg_e * exn[:, :, None]).view(E, HD))
-            outs = (dh2, dhead)
-    if with_keep:
-        outs += (keep if keep is not None else ex.new_ones((E, H)),)
-    return outs
+            dagg_e = dagg.index_select(0, dst).view(E, H, D)
+            dex = (dagg_e * h2.index_select(0, src).view(E, H, D)).sum(-1)
+            if keep is not None:
+                dex = dex * keep
+            ds = (dex + dden.index_select(0, dst)) * ex * slope
+            out_head.index_add_(0, grp, ds)
+            if mode == "dsrc":
+                out_vec.index_add_(
+                    0, grp, (dagg_e * exn[:, :, None]).view(E, HD))
+        if with_keep:
+            keep_all[e] = 1.0 if keep is None else keep
+    return outs + ((keep_all,) if with_keep else ())
 
 
 def _check_gat_args(mode, tensors, n, H, HD):
@@ -376,10 +532,14 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
              dagg: Optional[torch.Tensor] = None,
              dden: Optional[torch.Tensor] = None, *, alpha: float,
              attn_drop: float = 0.0, seed: Optional[torch.Tensor] = None,
-             with_keep: bool = False) -> Tuple[torch.Tensor, ...]:
+             with_keep: bool = False,
+             acc: Optional[Tuple[torch.Tensor, ...]] = None,
+             coord_key: bool = False) -> Tuple[torch.Tensor, ...]:
     """One K3 pass over the grouping ``ptr``/``idx`` (int32; the CSR of the
     graph for ``fwd`` and ``dsd``, its CSC for ``dsrc``), ``orig`` the int32
     position of each edge in the graph's edge list (the dropout key).
+    ``ptr`` may be one panel's row of a panel-major CSR: offsets into the
+    flat ``idx``.
 
     ``sd``/``ss`` ``[n, H]`` are the score halves, ``smax`` ``[H]`` the max
     of ``ss`` over all rows, ``h2`` ``[n, H·D]`` the transformed features;
@@ -387,7 +547,15 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     ``dden = −Σ_d g·out/den`` ``[n, H]``. ``seed`` is a one-element int64
     tensor, read when ``attn_drop > 0``. Returns ``(num, den)`` for ``fwd``,
     ``(dsd,)`` for ``dsd``, ``(dh2, dss)`` for ``dsrc``, and with
-    ``with_keep`` also the ``[nnz, H]`` keep scales the pass used.
+    ``with_keep`` also the ``[nnz, H]`` keep scales the pass used (0 for
+    entries outside ``ptr``'s range).
+
+    ``acc``: the mode's output buffers; the pass adds its sums into them in
+    place, leaves rows without an edge in ``ptr``'s range untouched, and
+    returns them. ``coord_key``: hash the dropout mask from each edge's
+    (dst, src) coordinates, ``dst·0x9E3779B1 ^ src·0x85EBCA77 ^ seed``,
+    instead of ``orig ^ seed``; ``orig`` is then not read. Parallel edges
+    share one decision under this key.
 
     CUDA tensors run K3 on the current stream; CPU tensors run
     :func:`gat_pass_reference`. Each launch adds one to
@@ -399,7 +567,8 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
         return gat_pass_reference(mode, ptr, idx, orig, sd, ss, smax, h2,
                                   dagg, dden, alpha=alpha,
                                   attn_drop=attn_drop, seed=seed,
-                                  with_keep=with_keep)
+                                  with_keep=with_keep, acc=acc,
+                                  coord_key=coord_key)
     n, H = sd.shape
     HD = h2.shape[1]
     if not 1 <= H <= GAT_MAX_HEADS or HD % H:
@@ -413,16 +582,31 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     if mode != "fwd":
         tensors.update(dagg=dagg, dden=dden)
     if drop:
-        tensors.update(orig=orig, seed=seed)
+        tensors.update(seed=seed)
+        if not coord_key:
+            tensors.update(orig=orig)
+    out_shapes = tuple((n, w) for w in gat_output_widths(mode, H, HD))
+    if acc is not None:
+        if len(acc) != len(out_shapes):
+            raise ValueError(f"gat_pass[{mode}]: acc takes {len(out_shapes)} "
+                             f"buffers, got {len(acc)}")
+        for i, (t, shape) in enumerate(zip(acc, out_shapes)):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"gat_pass[{mode}]: acc[{i}] must be "
+                                 f"{shape}, got {tuple(t.shape)}")
+            tensors[f"acc[{i}]"] = t
     _check_gat_args(mode, tensors, n, H, HD)
     if ptr.numel() != n + 1:
         raise ValueError(f"gat_pass: ptr has {ptr.numel()} entries for {n} "
                          "rows")
     nnz = idx.numel()
-    out_vec = (None if mode == "dsd"
-               else torch.empty((n, HD), dtype=torch.float32, device=sd.device))
-    out_head = torch.empty((n, H), dtype=torch.float32, device=sd.device)
-    keep = (torch.empty((nnz, H), dtype=torch.float32, device=sd.device)
+    if acc is not None:
+        out_vec, out_head = (None, *acc) if mode == "dsd" else acc
+    else:
+        out_vec = (None if mode == "dsd" else torch.empty(
+            (n, HD), dtype=torch.float32, device=sd.device))
+        out_head = torch.empty((n, H), dtype=torch.float32, device=sd.device)
+    keep = (torch.zeros((nnz, H), dtype=torch.float32, device=sd.device)
             if with_keep else None)
     thresh, inv_keep = _drop_params(attn_drop) if drop else (0, 1.0)
     lib = load_library()
@@ -433,12 +617,13 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(sd.device):
         stream = torch.cuda.current_stream(sd.device).cuda_stream
         err = lib.gat_pass_f32(
-            GAT_MODES.index(mode), p(ptr), p(idx), p(orig) if drop else None,
+            GAT_MODES.index(mode), p(ptr), p(idx),
+            p(orig) if drop and not coord_key else None,
             p(seed) if drop else None, p(sd), p(ss), p(smax), p(h2),
             p(dagg) if mode != "fwd" else None,
             p(dden) if mode != "fwd" else None, p(out_vec), p(out_head),
             p(keep), n, H, D, float(alpha), inv_keep, thresh, int(drop),
-            stream)
+            int(coord_key), int(acc is not None), stream)
     if err != 0:
         raise RuntimeError(
             f"gat_pass[{mode}] kernel launch failed: CUDA error {err} "
@@ -454,6 +639,23 @@ gat_pass.launches = 0
 gat_pass.launches_by = collections.Counter()
 
 
+def _gat_sweep(mode: str, ptr, idx, orig, sd, *tables, **kw):
+    """One K3 sweep over a whole structure: a single pass over a CSR
+    (``ptr`` 1-D, dropout keyed on ``orig``), or, over a panel-major CSR
+    (``ptr`` ``[n_panels, n + 1]``), one pass per panel into one zeroed
+    accumulator with the coordinate-keyed dropout hash, as the JAX
+    package's ``_gat_apply`` drives its blocked layouts."""
+    if ptr.ndim == 1:
+        return gat_pass(mode, ptr, idx, orig, sd, *tables, **kw)
+    n, H = sd.shape
+    acc = tuple(sd.new_zeros((n, w)) for w in gat_output_widths(
+        mode, H, tables[2].shape[1]))
+    for panel_ptr in ptr:
+        gat_pass(mode, panel_ptr, idx, None, sd, *tables, acc=acc,
+                 coord_key=True, **kw)
+    return acc
+
+
 class GATFusedFunction(torch.autograd.Function):
     """``out[r,h,:] = Σ_e softmax_e(lrelu(sd[r,h] + ss[c_e,h])) · keep ·
     h2[c_e,h,:]`` through K3, the port of the custom VJP ``gat_fused_p``
@@ -466,7 +668,13 @@ class GATFusedFunction(torch.autograd.Function):
     ``fw_orig``) and CSC (``bw_ptr``, ``bw_col``, ``bw_orig``) of
     ``prepare_spmm``; ``seed`` (one-element int64 tensor or None),
     ``alpha``, ``attn_drop``. The softmax shift ``lrelu(sd + max ss)`` is
-    exact and gets no gradient."""
+    exact and gets no gradient.
+
+    Over the panel-major CSR of ``prepare_spmm_device`` (``fw_ptr`` and
+    ``bw_ptr`` 2-D) each of the three sweeps is one accumulating pass per
+    panel; the shift does not depend on the panel, so the panels' partial
+    sums add up exactly. ``fw_orig``/``bw_orig`` are then None: the dropout
+    mask is hashed from the edges' coordinates."""
 
     @staticmethod
     def forward(ctx, sd, ss, h2, fw_ptr, fw_col, fw_orig, bw_ptr, bw_col,
@@ -474,8 +682,8 @@ class GATFusedFunction(torch.autograd.Function):
         sd, ss, h2 = sd.contiguous(), ss.contiguous(), h2.contiguous()
         n, H = sd.shape
         smax = ss.detach().amax(0).contiguous()
-        num, den = gat_pass("fwd", fw_ptr, fw_col, fw_orig, sd, ss, smax, h2,
-                            alpha=alpha, attn_drop=attn_drop, seed=seed)
+        num, den = _gat_sweep("fwd", fw_ptr, fw_col, fw_orig, sd, ss, smax,
+                              h2, alpha=alpha, attn_drop=attn_drop, seed=seed)
         den = den.clamp_min(1e-16)
         out = (num.view(n, H, -1) / den[:, :, None]).view(n, -1)
         ctx.save_for_backward(sd, ss, h2, smax, den, out, fw_ptr, fw_col,
@@ -494,9 +702,9 @@ class GATFusedFunction(torch.autograd.Function):
         kw = dict(alpha=ctx.alpha, attn_drop=ctx.attn_drop, seed=seed)
         dsd = dss = dh2 = None
         if ctx.needs_input_grad[0]:
-            (dsd,) = gat_pass("dsd", fw_ptr, fw_col, fw_orig, sd, ss, smax,
-                              h2, dagg, dden, **kw)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dh2, dss = gat_pass("dsrc", bw_ptr, bw_col, bw_orig, sd, ss, smax,
+            (dsd,) = _gat_sweep("dsd", fw_ptr, fw_col, fw_orig, sd, ss, smax,
                                 h2, dagg, dden, **kw)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dh2, dss = _gat_sweep("dsrc", bw_ptr, bw_col, bw_orig, sd, ss,
+                                  smax, h2, dagg, dden, **kw)
         return (dsd, dss, dh2) + (None,) * 9

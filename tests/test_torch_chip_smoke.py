@@ -108,6 +108,119 @@ def test_bound_counts_each_byte_once():
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def test_accum_kernel_check_phase_rehearsal():
+    report = cs.phase_accum_kernel_check(CPU, num_nodes=300)
+    assert set(report) == {f"{s},F={f}" for s in ("csr", "csc")
+                           for f in (128, 47)}
+    for r in report.values():
+        assert r["vs_plain"] == 0.0       # the plain version on both sides
+        assert r["vs_one_k1_call"] <= 1.0
+
+
+def test_panel_autograd_phase_rehearsal():
+    errs = cs.phase_panel_autograd(CPU, num_nodes=300)
+    assert set(errs) == {"y", "dx", "dw"} and max(errs.values()) <= 1.0
+
+
+def test_gat_accum_check_phase_rehearsal():
+    report = cs.phase_gat_accum_check(CPU, num_nodes=300)
+    assert set(report) == {f"{m},H={h},D={d}" for h, d in ((8, 16), (1, 47))
+                           for m in ("fwd", "dsd", "dsrc")}
+    assert set(report.values()) == {0.0}
+
+
+def test_gat_panel_autograd_phase_rehearsal():
+    report = cs.phase_gat_autograd(CPU, num_nodes=300,
+                                   n_panels=cs.CHECK_PANELS)
+    assert set(report) == {"H=8,D=16", "H=1,D=47"}
+    assert max(max(r.values()) for r in report.values()) <= 1.0
+
+
+def test_panel_parity_phase_rehearsal():
+    assert cs.phase_panel_parity(CPU, num_nodes=500) == {"gcn": 0.0,
+                                                         "gat": 0.0}
+
+
+def test_panel_sweep_phase_rehearsal():
+    rows = cs.phase_panel_sweep(CPU, nodes=2000, avg_degree=10,
+                                panels=(1, 2, 4), steps=1)
+    assert [(r["panels"], r["kernel"]) for r in rows] == [
+        (1, "K1"), (2, "K2"), (4, "K2")]
+    assert rows[0]["panel_rows"] == 0 and rows[2]["panel_rows"] == 512
+    assert all(r["step_ms_no_cache"] > 0 for r in rows)
+
+
+def _replaces(entry, prefix):
+    path, line = entry["replaces"].split(":")
+    src = open(os.path.join(REPO, path)).read().splitlines()
+    assert src[int(line) - 1].startswith(prefix)
+    assert os.path.exists(os.path.join(REPO, entry["source"]))
+
+
+def test_products_gcn_phase_rehearsal():
+    info, entries = cs.phase_products(CPU, "gcn", nodes=2000, avg_degree=10,
+                                      panel_rows=512, steps=3, iters=1)
+    assert info["panels"] == 4 and info["panel_rows"] == 512
+    assert info["edges"] == 22_000
+    # CPU tensors never launch a kernel
+    assert info["cached_launches_per_step"] == 0
+    assert info["uncached_launches_per_step"] == 0
+    assert info["cached_losses"][-1] < info["cached_losses"][0]
+    assert info["uncached_step_ms"] > 0 and "peak_hbm_bytes" not in info
+    assert [e["name"] for e in entries] == ["spmm_csr_accum[F=128]",
+                                            "spmm_csr_accum[F=47]"]
+    for e in entries:
+        assert KERNEL_KEYS <= set(e)
+        assert e["err_over_tol"] == 0.0 and e["launches"] == 0
+        assert e["bound_by"] == "bytes" and e["library_ms"] > 0
+        assert e["source"] == "cogdl_tpu_torch/csrc/spmm_csr_accum.cu"
+        assert e["sweep_ms"] == pytest.approx(e["ms"] * e["panels"])
+        _replaces(e, "def sorted_segment_matmul_accum(")
+
+
+def test_products_gat_phase_rehearsal():
+    info, entries = cs.phase_products(CPU, "gat", nodes=2000, avg_degree=10,
+                                      panel_rows=512, steps=3, iters=1)
+    assert info["panels"] == 4 and info["launches_per_step"] == 0
+    assert info["losses"][-1] < info["losses"][0]
+    assert [e["name"] for e in entries] == [
+        f"gat_pass_accum[{m},H={h},D={d}]" for h, d in ((8, 16), (1, 47))
+        for m in ("fwd", "dsd", "dsrc")]
+    for e in entries:
+        assert KERNEL_KEYS <= set(e)
+        assert e["err_over_tol"] <= 1.0   # float32 against the float64 run
+        assert e["library_ms"] is None and e["launches"] == 0
+        assert e["source"] == "cogdl_tpu_torch/csrc/gat_fused.cu"
+        _replaces(e, "def _gat_pass(")
+
+
+def test_products_phase_refuses_a_structure_without_panels():
+    with pytest.raises(AssertionError, match="no panel structure"):
+        cs.phase_products(CPU, "gcn", nodes=2000, avg_degree=10,
+                          panel_rows=0, steps=1, iters=1)
+
+
+def test_accum_bound_counts_each_byte_once():
+    # a panel of 10,000 edges over 1000 rows: 700 rows have an edge (read
+    # and written), 800 rows of x are named
+    ms, by = cs.accum_bound_ms(n_rows=1000, nnz=10_000, feat=128, x_rows=800,
+                               own_rows=700)
+    nbytes = 4 * 1001 + 8 * 10_000 + 4 * 128 * (800 + 2 * 700)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # the accumulating K3 pass: outputs read and written for rows with edges
+    ms, _ = cs.gat_bound_ms("fwd", 1000, 10_000, 800, 700, 2, 4, drop=False,
+                            accum=True)
+    assert ms == pytest.approx((4 * 1001 + 4 * 10_000 + 4 * 800 * (8 + 2)
+                                + 4 * 700 * 2 + 4 * 2
+                                + 4 * 2 * 700 * (8 + 2)) / 3.35e12 * 1e3)
+
+
 def _run_without_card(cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

@@ -1,6 +1,6 @@
-"""cogdl_tpu_torch on the card: K1 and K3 against their plain versions, the
-autograd Functions, the dispatch rules and the main paths. Every test here needs an
-NVIDIA card and skips without one. This file imports nothing of jax, so on a
+"""cogdl_tpu_torch on the card: K1, K2 and K3 against their plain versions,
+the autograd Functions, the dispatch rules and the main paths. Every test
+here needs an NVIDIA card and skips without one. This file imports nothing of jax, so on a
 machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,19 +9,23 @@ machine without it run:
 import pytest
 import torch
 
-from cogdl_tpu_torch import experiment
+from cogdl_tpu_torch import bench, experiment
 from cogdl_tpu_torch.data.graph import add_self_loops, sym_norm
 from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph, sbm_graph
 from cogdl_tpu_torch.ops import spmm
-from cogdl_tpu_torch.ops.cuda import prepare_spmm
+from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import maybe_cuda_gat_fused
 from cogdl_tpu_torch.ops.cuda.segment_kernels import (
     GATFusedFunction,
     SpMMFunction,
+    SpMMPanelFunction,
+    gat_output_widths,
     gat_pass,
     gat_pass_reference,
     reset_launch_counts,
     spmm_csr,
+    spmm_csr_accum,
+    spmm_csr_accum_reference,
     spmm_csr_reference,
 )
 
@@ -220,3 +224,179 @@ def test_gat_experiment_on_card_goes_through_kernel(dev):
     assert by == {(m, h, d): 2 * (201 if m == "fwd" else 100)
                   for m in ("fwd", "dsd", "dsrc") for h, d in ((8, 8), (1, 4))}
     assert spmm_csr.launches == 0
+
+
+# -- the products-scale slice: K2 and K3's accumulating form over panels ----
+
+PANELS = 4
+
+
+def _panel_graph(dev, with_orig=False, directed=True):
+    g = _graph(dev, directed)
+    return prepare_spmm_device(g, symmetric=not directed, with_orig=with_orig,
+                               panel_rows=-(-g.n_pad // PANELS), store_w=True)
+
+
+@pytest.mark.parametrize("feat", [1, 4, 47, 128, 130])
+@pytest.mark.parametrize("direction", ["fw", "bw"])
+def test_accum_kernel_matches_plain_version(dev, feat, direction):
+    ex = _panel_graph(dev).extras
+    ptrs, col, w = (ex[f"spmm_{direction}_{k}"] for k in ("ptr", "col", "w"))
+    assert ptrs.shape[0] == PANELS
+    n = ptrs.shape[1] - 1
+    x = torch.randn(n, feat, device=dev)
+    acc = torch.randn(n, feat, device=dev)
+    ref = acc.clone()
+    structure = "csr" if direction == "fw" else "csc"
+    reset_launch_counts()
+    for ptr in ptrs:
+        before = acc.clone()
+        assert spmm_csr_accum(acc, ptr, col, w, x, structure) is acc
+        untouched = ptr[1:] == ptr[:-1]
+        assert torch.equal(acc[untouched], before[untouched])
+        spmm_csr_accum_reference(ref, ptr, col, w, x)
+    torch.cuda.synchronize()
+    assert spmm_csr_accum.launches == PANELS and spmm_csr.launches == 0
+    assert dict(spmm_csr_accum.launches_by) == {(structure, feat): PANELS}
+    torch.testing.assert_close(acc, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_accum_kernel_scalar_path_and_determinism(dev):
+    ex = _panel_graph(dev).extras
+    ptrs, col, w = (ex[f"spmm_bw_{k}"] for k in ("ptr", "col", "w"))
+    n = ptrs.shape[1] - 1
+    x = torch.randn(n * 8 + 1, device=dev)[1:].view(n, 8)   # 4-byte offset
+    outs = []
+    for _ in range(2):
+        acc = torch.zeros(n, 8, device=dev)
+        for ptr in ptrs:
+            spmm_csr_accum(acc, ptr, col, w, x)
+        outs.append(acc)
+    assert torch.equal(*outs)
+    one = prepare_spmm(_graph(dev)).extras
+    torch.testing.assert_close(
+        outs[0], spmm_csr_reference(one["spmm_bw_ptr"], one["spmm_bw_col"],
+                                    one["spmm_bw_w"], x), rtol=RTOL, atol=ATOL)
+
+
+def test_accum_kernel_refuses_what_it_does_not_take(dev):
+    ex = _panel_graph(dev).extras
+    args = (ex["spmm_fw_ptr"][0], ex["spmm_fw_col"], ex["spmm_fw_w"])
+    n = args[0].numel() - 1
+    x = torch.randn(n, 8, device=dev)
+    with pytest.raises(ValueError, match="acc must be"):
+        spmm_csr_accum(torch.zeros(n, 4, device=dev), *args, x)
+    with pytest.raises(TypeError):
+        spmm_csr_accum(torch.zeros(n, 8, device=dev).double(), *args, x)
+    with pytest.raises(ValueError, match="acc is on"):
+        spmm_csr_accum(torch.zeros(n, 8), *args, x)
+
+
+def test_panel_function_matches_the_cpu_run(dev):
+    ex = _panel_graph(dev).extras
+    keys = [ex[f"spmm_{d}_{k}"] for d in ("fw", "bw") for k in ("ptr", "col", "w")]
+    n = keys[0].shape[1] - 1
+    x0, probe = torch.randn(n, 47), torch.randn(n, 47)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        x = x0.to(d).requires_grad_(True)
+        w = keys[2].to(d).clone().requires_grad_(True)
+        ks = [k.to(d) for k in keys]
+        y = SpMMPanelFunction.apply(x, ks[0], ks[1], w, *ks[3:])
+        dx, dw = torch.autograd.grad((y * probe.to(d)).sum(), (x, w))
+        res.append([t.detach().cpu() for t in (y, dx, dw)])
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_cuda_spmm_on_a_gat_structure_needs_weights(dev):
+    g = _graph(dev, directed=False)
+    g = prepare_spmm_device(g, symmetric=True, with_orig=True,
+                            panel_rows=-(-g.n_pad // PANELS))
+    with pytest.raises(RuntimeError, match="store_w=True"):
+        spmm(g, g.x)
+
+
+@pytest.mark.parametrize("attn_drop", [0.0, 0.6])
+@pytest.mark.parametrize("H,D", [(1, 4), (1, 47), (8, 16), (3, 50), (32, 2)])
+@pytest.mark.parametrize("mode", ["fwd", "dsd", "dsrc"])
+def test_gat_accum_kernel_matches_plain_version(dev, mode, H, D, attn_drop):
+    g, t = _gat_case(dev, H, D)
+    ex = _panel_graph(dev, with_orig=True).extras
+    d = "bw" if mode == "dsrc" else "fw"
+    ptrs, idx = ex[f"spmm_{d}_ptr"], ex[f"spmm_{d}_col"]
+    n = g.n_pad
+    acc = tuple(torch.randn(n, w, device=dev)
+                for w in gat_output_widths(mode, H, H * D))
+    ref = tuple(a.clone() for a in acc)
+    back = () if mode == "fwd" else (t["dagg"], t["dden"])
+    kw = dict(alpha=0.2, attn_drop=attn_drop,
+              seed=torch.tensor([77], device=dev), with_keep=True,
+              coord_key=True)
+    reset_launch_counts()
+    for ptr in ptrs:
+        before = [a.clone() for a in acc]
+        *outs, keep = gat_pass(mode, ptr, idx, None, t["sd"], t["ss"],
+                               t["smax"], t["h2"], *back, acc=acc, **kw)
+        assert all(o is a for o, a in zip(outs, acc))
+        untouched = ptr[1:] == ptr[:-1]
+        assert all(torch.equal(a[untouched], b[untouched])
+                   for a, b in zip(acc, before))
+        *_, keep_ref = gat_pass_reference(mode, ptr, idx, None, t["sd"],
+                                          t["ss"], t["smax"], t["h2"], *back,
+                                          acc=ref, **kw)
+        assert torch.equal(keep, keep_ref)
+    torch.cuda.synchronize()
+    assert dict(gat_pass.launches_by) == {(mode, H, D): PANELS}
+    for a, r in zip(acc, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def test_gat_panel_function_matches_the_cpu_run_and_the_single_shot(dev):
+    g, t = _gat_case(dev, 4, 8)
+    ex = _panel_graph(dev, with_orig=True).extras
+    keys = [ex.get(f"spmm_{d}_{k}") for d in ("fw", "bw")
+            for k in ("ptr", "col", "orig")]
+    assert keys[2] is None and keys[5] is None and keys[0].ndim == 2
+    seed = torch.tensor([3], device=dev)
+    probe = torch.randn_like(t["h2"])
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        ins = [t[k].to(d).clone().requires_grad_(True)
+               for k in ("sd", "ss", "h2")]
+        out = GATFusedFunction.apply(
+            *ins, *(k if k is None else k.to(d) for k in keys), seed.to(d),
+            0.2, 0.5)
+        (out * probe.to(d)).sum().backward()
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in ins])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # without dropout the panel route equals the single-shot route
+    one = g.extras
+    single = [one[f"spmm_{d}_{k}"] for d in ("fw", "bw")
+              for k in ("ptr", "col", "orig")]
+    ins = [t[k] for k in ("sd", "ss", "h2")]
+    torch.testing.assert_close(
+        GATFusedFunction.apply(*ins, *keys, None, 0.2, 0.0),
+        GATFusedFunction.apply(*ins, *single, None, 0.2, 0.0),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_bench_blocked_on_card_goes_through_the_panel_kernels(dev, model,
+                                                              capsys):
+    reset_launch_counts()
+    p = bench.main(["--model", model, "--nodes", "20000", "--blocked",
+                    "--panel-rows", "5120", "--attn-drop", "0.6", "--steps",
+                    "2", "--warmup", "1", "--repeats", "1"])
+    assert p["blocked_layout"] and p["panel_rows"] == 5120
+    assert p["peak_hbm_bytes"] > 0 and p["device"] != "cpu"
+    assert spmm_csr.launches == 0
+    if model == "gcn":
+        # 4 panels; cache set-up 2 sweeps, 3 cached steps of 2 sweeps, 3
+        # uncached steps of 4
+        assert spmm_csr_accum.launches == 4 * (2 + 3 * 2 + 3 * 4)
+        assert gat_pass.launches == 0
+    else:
+        assert gat_pass.launches == 4 * 3 * 6
+        assert spmm_csr_accum.launches == 0

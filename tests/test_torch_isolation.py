@@ -53,6 +53,14 @@ def test_forbidden_matches_exact_modules():
     assert not forbidden("jaxtyping") and not forbidden("flaxen")
 
 
+def test_scan_covers_the_bench_and_the_kernel_wrappers():
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {"cogdl_tpu_torch/bench.py",
+            "cogdl_tpu_torch/ops/cuda/segment_kernels.py",
+            "cogdl_tpu_torch/ops/cuda/device_layout.py",
+            "chip_smoke.py"} <= scanned
+
+
 @pytest.mark.parametrize("path", list(_sources()),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_imports_nothing_of_jax(path):
