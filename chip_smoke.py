@@ -11,9 +11,12 @@ kernel, compares card and CPU logits, and checks accuracy on ``sbm``. Then
 the products-scale path of ``cogdl_tpu_torch.bench`` (2.45 M nodes, about
 125 M edges, the panel structure built on the card): K2 and K3's
 accumulating form against their plain versions panel by panel, a sweep of
-panel heights, and GCN and GAT train steps with exact launch counts. Prints
-one JSON line of kernel measurements and, last, ``{"ok": true, "device":
-{...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
+panel heights, and GCN and GAT train steps with exact launch counts. Then
+the gather probes (K4, K5 and K6 against their plain versions at the sizes of
+``cogdl_tpu_torch.scripts.microbench_gather``, and every stage of that
+script with exact launch counts) and full-batch GraphSAGE through
+``experiment()``. Prints one JSON line of kernel measurements and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails.
 
 The phases are functions of a device and a size so that a CPU test can
@@ -48,8 +51,11 @@ from cogdl_tpu_torch.ops import (
     gather_src,
     mh_spmm,
 )
+from cogdl_tpu_torch.ops.cuda import gather_kernels as gk
 from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
+from cogdl_tpu_torch.scripts import microbench_gather as mg
+from cogdl_tpu_torch.utils.timing import time_ms
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 
 # bench.py's default GCN configuration: 100k nodes, avg degree 30, F=100,
@@ -93,6 +99,17 @@ ACCUM_REPLACES = "cogdl_tpu/ops/pallas/segment_kernels.py:244"
 GAT_SOURCE = "cogdl_tpu_torch/csrc/gat_fused.cu"
 GAT_REPLACES = "cogdl_tpu/ops/pallas/segment_kernels.py:975"
 
+GATHER_BLOCK_SOURCE = "cogdl_tpu_torch/csrc/gather_block.cu"
+GATHER_BLOCK_REPLACES = "scripts/microbench_gather7.py:82"
+GATHER_WINDOW_SOURCE = "cogdl_tpu_torch/csrc/gather_window.cu"
+GATHER_WINDOW_REPLACES = "scripts/microbench_gather7.py:111"
+GATHER_ROWS_SOURCE = "cogdl_tpu_torch/csrc/gather_rows_async.cu"
+GATHER_ROWS_REPLACES = "scripts/microbench_gather7.py:165"
+# GraphSAGE's short run with the "sum" aggregator (the K1 count) and the
+# aggregators whose card logits are held against the CPU's
+SAGE_SUM_EPOCHS = 5
+SAGE_AGGREGATORS = ("mean", "sum", "max", "gcn")
+
 # the products-scale path (bench --products): 2.45M nodes x 50, a few steps
 PRODUCTS_NODES = bench.PRODUCTS_NODES
 PRODUCTS_AVG_DEGREE = bench.PRODUCTS_AVG_DEGREE
@@ -111,27 +128,6 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, device: torch.device, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call: CUDA events on the card, the host clock on
-    the CPU (rehearsal only)."""
-    for _ in range(warmup):
-        fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound_ms(n_rows: int, nnz: int, feat: int, x_rows: int):
@@ -343,13 +339,15 @@ def phase_main_path(device: torch.device, num_nodes: int = NUM_NODES,
     return info
 
 
-def phase_parity(device: torch.device, num_nodes: int = NUM_NODES):
-    """The same GCN weights with dropout off on ``device`` and on the CPU
-    (plain versions); returns the largest logit difference."""
+def _logit_parity(tag: str, name: str, device: torch.device, num_nodes: int,
+                  **model_kw):
+    """The same weights of model ``name`` with dropout off on ``device``
+    (the kernels) and on the CPU (their plain versions), through the
+    wrapper's ``prepare_graph``; returns the largest logit difference."""
     g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
                        num_classes=NUM_CLASSES, seed=0)
-    model = build_model("gcn", in_features=FEAT_DIM, out_features=NUM_CLASSES,
-                        hidden_size=HIDDEN, dropout=0.0)
+    model = build_model(name, in_features=FEAT_DIM, out_features=NUM_CLASSES,
+                        dropout=0.0, **model_kw)
     model.reset_parameters(torch.Generator().manual_seed(0))
     logits = {}
     for dev in (torch.device("cpu"), device):
@@ -359,21 +357,36 @@ def phase_parity(device: torch.device, num_nodes: int = NUM_NODES):
             logits[dev.type] = m(prepared, training=False)[:num_nodes].cpu()
     ref, out = logits["cpu"], logits[device.type]
     diff = float((out - ref).abs().max())
-    print(f"[parity] max |logits_{device.type} - logits_cpu| = {diff:.3g}")
+    print(f"[{tag}] max |logits_{device.type} - logits_cpu| = {diff:.3g} "
+          f"({num_nodes} nodes)")
     if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
-        raise AssertionError(f"card logits differ from CPU logits by {diff}")
+        raise AssertionError(f"card {name} logits differ from CPU logits by "
+                             f"{diff} ({model_kw})")
     return diff
 
 
-def phase_quality(device: torch.device, epochs: int = 100):
-    results = experiment(dataset="sbm", model="gcn", epochs=epochs, seed=[0, 1],
-                         device=str(device))
+def phase_parity(device: torch.device, num_nodes: int = NUM_NODES):
+    """GCN logits on ``device`` (K1) against the CPU's."""
+    return _logit_parity("parity", "gcn", device, num_nodes,
+                         hidden_size=HIDDEN)
+
+
+def _sbm_quality(tag: str, model: str, device: torch.device, epochs: int):
+    """Mean test accuracy of ``model`` on ``sbm`` over two seeds, held to the
+    bar."""
+    results = experiment(dataset="sbm", model=model, epochs=epochs,
+                         seed=[0, 1], device=str(device))
     (runs,) = results.values()
     acc = float(np.mean([r["test_acc"] for r in runs]))
-    print(f"[quality] sbm test_acc {acc:.4f} (bar {SBM_MIN_TEST_ACC})")
+    print(f"[{tag}] sbm test_acc {acc:.4f} (bar {SBM_MIN_TEST_ACC})")
     if acc < SBM_MIN_TEST_ACC:
-        raise AssertionError(f"sbm test_acc {acc} < {SBM_MIN_TEST_ACC}")
+        raise AssertionError(f"{model} sbm test_acc {acc} < "
+                             f"{SBM_MIN_TEST_ACC}")
     return acc
+
+
+def phase_quality(device: torch.device, epochs: int = 100):
+    return _sbm_quality("quality", "gcn", device, epochs)
 
 
 def _gat_inputs(n: int, heads: int, head_dim: int, gen, device):
@@ -553,40 +566,15 @@ def phase_gat_main_path(device: torch.device, num_nodes: int = NUM_NODES,
 
 def phase_gat_parity(device: torch.device,
                      num_nodes: int = GAT_PARITY_NODES):
-    """The same GAT weights with dropout off on ``device`` (fused route,
-    K3) and on the CPU (unfused route); returns the largest logit
-    difference."""
-    g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
-                       num_classes=NUM_CLASSES, seed=0)
-    model = build_model("gat", in_features=FEAT_DIM, out_features=NUM_CLASSES,
-                        hidden_size=GAT_HEAD_DIM, nhead=GAT_HEADS,
-                        dropout=0.0, attn_drop=0.0)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    logits = {}
-    for dev in (torch.device("cpu"), device):
-        m = copy.deepcopy(model).to(dev)
-        prepared = NodeClfWrapper(m).prepare_graph(g.to(dev))
-        with torch.no_grad():
-            logits[dev.type] = m(prepared, training=False)[:num_nodes].cpu()
-    ref, out = logits["cpu"], logits[device.type]
-    diff = float((out - ref).abs().max())
-    print(f"[gat-parity] max |logits_{device.type} - logits_cpu| = {diff:.3g} "
-          f"({num_nodes} nodes)")
-    if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
-        raise AssertionError(f"card GAT logits differ from CPU logits by "
-                             f"{diff}")
-    return diff
+    """GAT logits on ``device`` (fused route, K3) against the CPU's (unfused
+    route)."""
+    return _logit_parity("gat-parity", "gat", device, num_nodes,
+                         hidden_size=GAT_HEAD_DIM, nhead=GAT_HEADS,
+                         attn_drop=0.0)
 
 
 def phase_gat_quality(device: torch.device, epochs: int = 100):
-    results = experiment(dataset="sbm", model="gat", epochs=epochs, seed=[0, 1],
-                         device=str(device))
-    (runs,) = results.values()
-    acc = float(np.mean([r["test_acc"] for r in runs]))
-    print(f"[gat-quality] sbm test_acc {acc:.4f} (bar {SBM_MIN_TEST_ACC})")
-    if acc < SBM_MIN_TEST_ACC:
-        raise AssertionError(f"GAT sbm test_acc {acc} < {SBM_MIN_TEST_ACC}")
-    return acc
+    return _sbm_quality("gat-quality", "gat", device, epochs)
 
 
 # ---------------------------------------------------------------------------
@@ -1096,6 +1084,220 @@ def phase_panel_parity(device: torch.device,
     return diffs
 
 
+# ---------------------------------------------------------------------------
+# The gather probes (K4, K5, K6) and the probe script
+# ---------------------------------------------------------------------------
+
+def gather_bound_ms(distinct_rows: int, n_idx: int, n_chunks: int):
+    """Least time for one gather-probe call on the H100: the
+    ``distinct_rows`` table rows that the indices name read once (512 B
+    each), the ``n_idx`` int32 indices read once, one float a chunk written,
+    against the HBM rate; one add per gathered float against the fp32 rate.
+    Returns ``(ms, "bytes" | "operations")``."""
+    nbytes = 512 * distinct_rows + 4 * n_idx + 4 * n_chunks
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 128.0 * n_idx / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_cases(rows: int, gathered: int):
+    """One case per gather kernel and size the probe script runs:
+    ``(name, stage, source, replaces, entries of idx, index range, kernel,
+    plain version, slot -> table row)``, the last three functions of
+    ``(table, idx)``."""
+    chunk = mg.T
+    cases = [(f"gather_block_sum[T={chunk}]", "B", GATHER_BLOCK_SOURCE,
+              GATHER_BLOCK_REPLACES, gathered, chunk,
+              lambda t, i: gk.gather_block_sum(t, i, chunk),
+              lambda t, i: gk.gather_block_sum_reference(t, i, chunk),
+              lambda t, i: gk.window_rows(i, t.shape[0], chunk, chunk))]
+    for w in mg.WINDOWS:
+        cases.append((
+            f"gather_window_sum[W={w}]", f"C{w}", GATHER_WINDOW_SOURCE,
+            GATHER_WINDOW_REPLACES, gathered, w,
+            lambda t, i, w=w: gk.gather_window_sum(t, i, w, chunk),
+            lambda t, i, w=w: gk.gather_window_sum_reference(t, i, w, chunk),
+            lambda t, i, w=w: gk.window_rows(i, t.shape[0], w, chunk)))
+    depth = mg.OUTSTANDING
+    cases.append((
+        f"gather_rows_sum[outstanding={depth}]", "D", GATHER_ROWS_SOURCE,
+        GATHER_ROWS_REPLACES, mg.stage_case("D", rows, gathered).rows_gathered,
+        rows,
+        lambda t, i: gk.gather_rows_sum(t, i, chunk, depth),
+        lambda t, i: gk.gather_rows_sum_reference(t, i, chunk),
+        lambda t, i: i.long()))
+    return cases
+
+
+def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
+                              gathered: int = mg.E, iters: int = 20):
+    """K4, K5 (every window) and K6 against their plain versions at the
+    probe script's sizes: every chunk's sum within ``KERNEL_ATOL +
+    KERNEL_RTOL·Σ|terms|`` of the plain version's (fp32 both, summation
+    order only; 131,072 terms a chunk), and the grand total within the same
+    bound, over all terms, of the plain version run in float64. Times the
+    kernel, the plain version and the one PyTorch call for the same function
+    (``index_select`` of the named rows, reshape, ``sum``). Returns one
+    measurement entry per case."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    table = torch.randn((rows, 128), generator=gen, device=device)
+    entries = []
+    for (name, stage, source, replaces, n_idx, hi, kernel, plain,
+         named_rows) in gather_cases(rows, gathered):
+        idx = torch.randint(0, hi, (n_idx,), generator=gen, device=device,
+                            dtype=torch.int32)
+        n_chunks = n_idx // mg.T
+        out = kernel(table, idx)
+        _sync(device)
+        ref = plain(table, idx)
+        scale = plain(table.abs(), idx)
+        err = scaled_err(out, ref, scale)
+        total_err = float(
+            (out.double().sum() - plain(table.double(), idx).sum()).abs()
+            / (KERNEL_ATOL + KERNEL_RTOL * scale.double().sum()))
+        if not max(err, total_err) <= 1.0:
+            raise AssertionError(
+                f"{name}: kernel disagrees with its plain version ({err:.3g} "
+                f"x tolerance per chunk, {total_err:.3g} x on the total)")
+        named = named_rows(table, idx)
+        distinct = int(torch.unique(named).numel())
+        b_ms, b_by = gather_bound_ms(distinct, n_idx, n_chunks)
+        ms = time_ms(lambda: kernel(table, idx), device, iters)
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "stage": stage,
+            "max_abs_err": float((out - ref).abs().max()),
+            "err_over_tol": err, "total_err_over_tol": total_err,
+            "ms": ms,
+            "plain_ms": time_ms(lambda: plain(table, idx), device,
+                                max(iters // 4, 1), warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(
+                lambda: torch.index_select(table, 0, named).view(
+                    n_chunks, -1).sum(1), device, max(iters // 4, 1),
+                warmup=1),
+            "ns_per_row": ms * 1e6 / n_idx,
+            "gathered_bytes_per_s": n_idx * 512 / (ms * 1e-3),
+            "rows_gathered": n_idx, "chunks": n_chunks,
+            "distinct_rows": distinct,
+        }
+        print(f"[gather-kernel] {json.dumps(entry)}")
+        entries.append(entry)
+        del idx, named, ref, scale
+    return entries
+
+
+def phase_gather_path(device: torch.device, rows: int = mg.N,
+                      gathered: int = mg.E, iters: int = 20, warmup: int = 3):
+    """Every stage of ``cogdl_tpu_torch.scripts.microbench_gather`` through
+    its ``run``. On the card each call of a stage launches that stage's
+    kernel once and no other kernel (stage A launches none); a CPU run
+    launches none. Stages B and C1024 draw the same indices over the same
+    table and compute the same sum in two kernels: their totals must agree
+    within ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``, Σ|terms| taken as its
+    expectation for a standard normal table, ``0.8·128·E``. Returns the
+    stages' reports and the launches of each stage's kernel."""
+    on_card = device.type == "cuda"
+    wrappers = (gk.gather_block_sum, gk.gather_window_sum, gk.gather_rows_sum)
+    reports, launches = {}, {}
+    for stage in mg.STAGES:
+        sk.reset_launch_counts()
+        rep = mg.run(stage, device, rows, gathered, iters=iters,
+                     warmup=warmup)
+        mine, key = mg.stage_case(stage)[4:]
+        for fn in sk.COUNTED_WRAPPERS:
+            want = ({key: rep["calls"]} if fn is mine and on_card else {})
+            if dict(fn.launches_by) != want or (
+                    fn.launches != sum(want.values())):
+                raise AssertionError(
+                    f"probe stage {stage}: {fn.__name__} launched "
+                    f"{fn.launches} times, {dict(fn.launches_by)}; expected "
+                    f"{want} ({rep['calls']} calls)")
+        if not np.isfinite(rep["total"]):
+            raise AssertionError(f"probe stage {stage}: total not finite")
+        if mine in wrappers:
+            launches[stage] = mine.launches
+        reports[stage] = rep
+    b, c = reports["B"]["total"], reports[f"C{mg.T}"]["total"]
+    if not abs(b - c) <= KERNEL_ATOL + KERNEL_RTOL * 0.8 * 128 * gathered:
+        raise AssertionError(f"probe stages B and C{mg.T} sum the same rows "
+                             f"and disagree: {b} vs {c}")
+    print(f"[gather-path] {json.dumps({'launches': launches, 'stages': reports})}")
+    return {"stages": reports, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Full-batch GraphSAGE
+# ---------------------------------------------------------------------------
+
+def phase_sage_main_path(device: torch.device, num_nodes: int = NUM_NODES,
+                         epochs: int = MAIN_EPOCHS,
+                         sum_epochs: int = SAGE_SUM_EPOCHS):
+    """GraphSAGE on the powerlaw graph through experiment() at bench.py's
+    widths, dropout 0.5. First ``aggr="mean"``, the default: gather and
+    segment mean are torch index ops on every device, so no kernel may be
+    launched. Then a short ``aggr="sum"`` run, whose aggregation is ``spmm``:
+    on the card every train step launches K1 3 times (each layer's forward
+    over the CSR at its input width, F=100 and F=128, and the second layer's
+    backward over the CSC; the first layer's input needs no gradient) and
+    every evaluation twice. Returns both runs' step times and the K1
+    launches of each (structure, F) case."""
+    g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                       num_classes=NUM_CLASSES, seed=0)
+    ds = Dataset.from_graph(g, name=f"powerlaw-{num_nodes}")
+    on_card = device.type == "cuda"
+    info = {}
+    for aggr, n_epochs in (("mean", epochs), ("sum", sum_epochs)):
+        sk.reset_launch_counts()
+        results = experiment(dataset=ds, model="graphsage",
+                             hidden_size=HIDDEN, aggr=aggr, epochs=n_epochs,
+                             patience=n_epochs + 1, seed=0,
+                             device=str(device))
+        (runs,) = results.values()
+        res = runs[0]
+        evals = n_epochs + 1   # one per epoch and the final one
+        expected = {}
+        if aggr == "sum" and on_card:
+            expected = {("csr", FEAT_DIM): n_epochs + evals,
+                        ("csr", HIDDEN): n_epochs + evals,
+                        ("csc", HIDDEN): n_epochs}
+        by_case = dict(sk.spmm_csr.launches_by)
+        others = sum(fn.launches for fn in sk.COUNTED_WRAPPERS
+                     if fn is not sk.spmm_csr)
+        if by_case != expected or others or (
+                sk.spmm_csr.launches != sum(expected.values())):
+            raise AssertionError(
+                f"GraphSAGE aggr={aggr} launched K1 {by_case} and other "
+                f"kernels {others} times; expected {expected} ({n_epochs} "
+                f"steps, {evals} evaluations)")
+        if not np.isfinite(res["train_loss"]):
+            raise AssertionError(f"GraphSAGE aggr={aggr} loss is not finite: "
+                                 f"{res}")
+        info[aggr] = {"train_step_ms": res["train_step_ms"],
+                      "eval_ms": res["eval_ms"],
+                      "train_loss": res["train_loss"], "epochs": n_epochs,
+                      "launches": sk.spmm_csr.launches,
+                      "launches_by_case": {f"{s},F={f}": v
+                                           for (s, f), v in by_case.items()}}
+    print(f"[sage-main] {json.dumps(info)}")
+    return info
+
+
+def phase_sage_parity(device: torch.device,
+                      num_nodes: int = GAT_PARITY_NODES):
+    """GraphSAGE logits on ``device`` against the CPU's for every
+    aggregator (``sum`` and ``gcn`` run K1 on the card); returns the largest
+    differences."""
+    return {aggr: _logit_parity("sage-parity", "graphsage", device, num_nodes,
+                                hidden_size=HIDDEN, aggr=aggr)
+            for aggr in SAGE_AGGREGATORS}
+
+
+def phase_sage_quality(device: torch.device, epochs: int = 100):
+    return _sbm_quality("sage-quality", "graphsage", device, epochs)
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print how long it took."""
     t0 = time.perf_counter()
@@ -1142,6 +1344,15 @@ def main() -> int:
     gcn_info, gcn_entries = timed(phase_products, device, "gcn")
     gat_prod_info, gat_entries = timed(phase_products, device, "gat")
     entries += gcn_entries + gat_entries
+    # the gather probes and full-batch GraphSAGE
+    gather_entries = timed(phase_gather_kernel_check, device)
+    gather_info = timed(phase_gather_path, device)
+    for e in gather_entries:
+        e["launches"] = gather_info["launches"][e.pop("stage")]
+    entries += gather_entries
+    sage_info = timed(phase_sage_main_path, device)
+    timed(phase_sage_parity, device)
+    timed(phase_sage_quality, device)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
           f"eval_ms={main_info['eval_ms']:.3f}; GAT main path "
@@ -1152,7 +1363,10 @@ def main() -> int:
           f"{gat_prod_info['step_ms']:.1f} over "
           f"{gcn_info['panels']} panels; sweep best "
           f"{min(sweep, key=lambda r: r['step_ms_no_cache'])['panels']} "
-          f"panels on {smi}")
+          f"panels; GraphSAGE main path (mean) train_step_ms="
+          f"{sage_info['mean']['train_step_ms']:.3f} "
+          f"eval_ms={sage_info['mean']['eval_ms']:.3f}, (sum) "
+          f"train_step_ms={sage_info['sum']['train_step_ms']:.3f} on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

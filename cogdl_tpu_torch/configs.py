@@ -1,5 +1,5 @@
 """Tuned per-(model, dataset) hyper-parameters — the port's copy of the
-``gcn`` and ``gat`` entries of ``cogdl_tpu/configs.py``; applied when
+``gcn``, ``gat`` and ``graphsage`` entries of ``cogdl_tpu/configs.py``; applied when
 ``use_best_config=True`` with precedence defaults < best-config < user
 kwargs."""
 
@@ -17,4 +17,7 @@ BEST_CONFIGS = {
                     "dropout": 0.6, "attn_drop": 0.6},
         "pubmed": {"nhead_last": 8, "weight_decay": 0.001},
     },
+    "graphsage": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 500,
+                              "patience": 100, "hidden_size": 64,
+                              "dropout": 0.5}},
 }

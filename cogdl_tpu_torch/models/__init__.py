@@ -1,8 +1,8 @@
 """Model registry — the port of ``cogdl_tpu/models/__init__.py`` — and the
 weight bridge from the JAX package's flax parameters.
 
-Only ``gcn`` and ``gat`` are ported so far; every other name of the JAX
-registry waits in ROADMAP.md §1 ("Modules to port").
+``gcn``, ``gat`` and ``graphsage`` (alias ``sage``) are ported so far; every
+other name of the JAX registry waits in ROADMAP.md §1 ("Modules to port").
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from torch.nn import LayerNorm, Module
 SUPPORTED_MODELS: Dict[str, str] = {
     "gcn": "cogdl_tpu_torch.models.nn.gcn.GCN",
     "gat": "cogdl_tpu_torch.models.nn.gat.GAT",
+    "graphsage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
+    "sage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -48,7 +50,8 @@ def load_jax_params(model: Module, params: Mapping,
     ``variables["batch_stats"]``).
 
     The module paths are the same in both packages (``layer0/linear`` ↔
-    ``layer0.linear``, ``layer0/W`` ↔ ``layer0.W``). A flax ``kernel`` is
+    ``layer0.linear``, ``layer0/W`` ↔ ``layer0.W``, GraphSAGE's
+``layer0/W_self`` ↔ ``layer0.W_self``). A flax ``kernel`` is
     [in, out] and becomes the transposed torch ``weight`` [out, in]; a
     LayerNorm ``scale`` becomes its ``weight``; every other leaf keeps its
     name and shape (GAT's ``a_src``/``a_dst`` [1, H, D]). Raises if a parameter of the

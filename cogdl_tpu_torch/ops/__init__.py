@@ -9,6 +9,7 @@ from .segment import (
     segment_sum,
 )
 from .spmm import (
+    aggregate,
     cache_propagation,
     edge_softmax,
     gather_src,
@@ -24,5 +25,5 @@ __all__ = [
     "gather", "segment_sum", "segment_mean", "segment_max",
     "segment_softmax", "spmm", "spmm_coo", "source_table",
     "cache_propagation", "gather_src", "sddmm", "edge_softmax", "mh_spmm",
-    "mh_sddmm",
+    "mh_sddmm", "aggregate",
 ]

@@ -9,6 +9,8 @@ graph's own device, optionally grouped by source panel; both store it under
 the same ``spmm_fw_*``/``spmm_bw_*`` names, and ``meta["spmm_panel_rows"]``
 tells the dispatchers which it is: 0, one CSR per direction (K1, K3
 single-shot); above 0, a panel-major CSR (K2, K3 accumulating).
+``gather_kernels`` holds the gather probes K4-K6, which no model runs: the
+script ``cogdl_tpu_torch.scripts.microbench_gather`` drives them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ from .device_layout import (  # noqa: F401  (public kernel-tier re-exports)
     default_panel_rows,
     prepare_spmm_device,
 )
+from .gather_kernels import (  # noqa: F401  (public kernel-tier re-exports)
+    gather_block_sum,
+    gather_block_sum_reference,
+    gather_rows_sum,
+    gather_rows_sum_reference,
+    gather_window_sum,
+    gather_window_sum_reference,
+)
 from .segment_kernels import (  # noqa: F401  (public kernel-tier re-exports)
     GAT_MAX_HEADS,
     GATFusedFunction,
@@ -29,6 +39,7 @@ from .segment_kernels import (  # noqa: F401  (public kernel-tier re-exports)
     SpMMPanelFunction,
     gat_pass,
     gat_pass_reference,
+    reset_launch_counts,
     spmm_csr,
     spmm_csr_accum,
     spmm_csr_accum_reference,

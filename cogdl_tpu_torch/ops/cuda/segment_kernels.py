@@ -189,9 +189,14 @@ def _check_launch_args(row_ptr, col, w, x, acc=None, fn="spmm_csr"):
         raise ValueError(f"{fn}: int32 offsets overflow at this size")
 
 
+# every wrapper that counts its launches; the modules of the other kernels
+# (gather_kernels) add theirs
+COUNTED_WRAPPERS: list = []
+
+
 def reset_launch_counts() -> None:
-    """Set K1's, K2's and K3's launch counters to 0."""
-    for fn in (spmm_csr, spmm_csr_accum, gat_pass):
+    """Set every kernel wrapper's launch counters to 0."""
+    for fn in COUNTED_WRAPPERS:
         fn.launches = 0
         fn.launches_by.clear()
 
@@ -637,6 +642,7 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
 
 gat_pass.launches = 0
 gat_pass.launches_by = collections.Counter()
+COUNTED_WRAPPERS += [spmm_csr, spmm_csr_accum, gat_pass]
 
 
 def _gat_sweep(mode: str, ptr, idx, orig, sd, *tables, **kw):

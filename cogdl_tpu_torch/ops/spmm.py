@@ -17,6 +17,11 @@ plain tier on the card.
 plain torch on any device: they carry GAT's unfused route, which a layer
 takes only for a graph without the kernel structure (on the card the fused
 attention kernel runs instead, ``ops/cuda``).
+
+``aggregate`` is GraphSAGE's neighbourhood reduction: ``"sum"`` is ``spmm``
+(the kernel tier on the card); ``"mean"``, ``"max"`` and the regular-fanout
+branch are torch index ops on any device, as the JAX package computes them
+outside any kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from ..data.graph import Graph
 from . import segment as seg
 
 __all__ = ["spmm", "spmm_coo", "source_table", "cache_propagation",
-           "gather_src", "sddmm", "edge_softmax", "mh_spmm", "mh_sddmm"]
+           "gather_src", "sddmm", "edge_softmax", "mh_spmm", "mh_sddmm",
+           "aggregate"]
 
 
 def spmm_coo(
@@ -130,3 +136,33 @@ def mh_sddmm(graph: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ae = seg.gather(a.reshape(-1, H * D), graph.row).reshape(-1, H, D)
     be = gather_src(graph, b.reshape(-1, H * D)).reshape(-1, H, D)
     return (ae * be).sum(-1)
+
+
+def aggregate(graph: Graph, x: torch.Tensor, how: str = "sum") -> torch.Tensor:
+    """Neighbourhood aggregation of source features into destinations:
+    ``"sum"``, ``"mean"`` or ``"max"`` over each row's edges."""
+    f = graph.meta_get("fanout")
+    if f and how in ("sum", "mean"):
+        # regular-fanout block (device sampler): every real dst owns exactly
+        # f dst-major slots, so the scatter is a [n, f, F] reshape-reduce, no
+        # segment op at all (dead slots carry zero features and weights)
+        n = graph.meta_get("frontier")
+        msg = seg.gather(x, graph.col[: n * f]).reshape(n, f, -1)
+        ew = graph.edge_weight[: n * f].reshape(n, f, 1)
+        red = (msg * ew).sum(1)
+        if how == "mean":
+            # weighted mean over live slots (dead slots carry weight 0);
+            # under the device sampler's unit weights this equals sum / f
+            red = red / ew.sum(1).clamp_min(1.0)
+        return torch.cat(
+            [red, red.new_zeros((graph.n_pad - n, red.shape[-1]))])
+    if how == "sum":
+        return spmm(graph, x)
+    msg = seg.gather(x, graph.col)
+    if how == "mean":
+        return seg.segment_mean(msg, graph.row, graph.n_pad)
+    if how == "max":
+        m = graph.edge_mask().reshape((-1,) + (1,) * (msg.ndim - 1))
+        msg = torch.where(m, msg, torch.full_like(msg, seg._NEG_INF))
+        return seg.segment_max(msg, graph.row, graph.n_pad)
+    raise ValueError(how)

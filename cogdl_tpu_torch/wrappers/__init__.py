@@ -15,7 +15,9 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
 
 # model name → default wrapper
 DEFAULT_WRAPPER = {"gcn": "node_classification",
-                   "gat": "node_classification"}
+                   "gat": "node_classification",
+                   "graphsage": "node_classification",
+                   "sage": "node_classification"}
 
 
 def fetch_wrapper(name: str):

@@ -221,6 +221,79 @@ def test_accum_bound_counts_each_byte_once():
                                 + 4 * 2 * 700 * (8 + 2)) / 3.35e12 * 1e3)
 
 
+def test_gather_kernel_check_phase_rehearsal():
+    entries = cs.phase_gather_kernel_check(CPU, rows=4096, gathered=4096,
+                                           iters=1)
+    assert [(e["name"], e["stage"]) for e in entries] == [
+        ("gather_block_sum[T=1024]", "B"),
+        ("gather_window_sum[W=256]", "C256"),
+        ("gather_window_sum[W=512]", "C512"),
+        ("gather_window_sum[W=1024]", "C1024"),
+        ("gather_rows_sum[outstanding=8]", "D")]
+    for e in entries:
+        assert KERNEL_KEYS | {"ns_per_row", "gathered_bytes_per_s"} <= set(e)
+        assert e["err_over_tol"] == 0.0   # the plain version on both sides
+        assert e["total_err_over_tol"] <= 1.0
+        assert e["bound_by"] == "bytes" and e["library_ms"] > 0
+        assert e["rows_gathered"] == (1024 if e["stage"] == "D" else 4096)
+        assert e["ns_per_row"] == pytest.approx(
+            e["ms"] * 1e6 / e["rows_gathered"])
+        _replaces(e, "        parts = pl.pallas_call(")
+    # each names its own source and the call site of its own Pallas probe
+    assert [e["replaces"].split(":")[1] for e in entries] == [
+        "82", "111", "111", "111", "165"]
+    assert len({e["source"] for e in entries}) == 3
+
+
+def test_gather_bound_counts_each_byte_once():
+    # 900 distinct rows named by 4096 indices in 4 chunks
+    ms, by = cs.gather_bound_ms(distinct_rows=900, n_idx=4096, n_chunks=4)
+    assert by == "bytes"
+    assert ms == pytest.approx((512 * 900 + 4 * 4096 + 4 * 4) / 3.35e12 * 1e3)
+
+
+def test_gather_path_phase_rehearsal():
+    info = cs.phase_gather_path(CPU, rows=4096, gathered=2048, iters=1,
+                                warmup=0)
+    assert list(info["stages"]) == ["A", "B", "C256", "C512", "C1024", "D"]
+    # CPU tensors never launch a kernel; stage A has none to launch
+    assert info["launches"] == {"B": 0, "C256": 0, "C512": 0, "C1024": 0,
+                                "D": 0}
+    assert info["stages"]["B"]["total"] == pytest.approx(
+        info["stages"]["C1024"]["total"])
+    assert all(r["calls"] == 2 for r in info["stages"].values())
+
+
+def test_gather_path_phase_catches_a_launch_of_another_kernel(monkeypatch):
+    real = cs.mg.run
+
+    def run_and_count(stage, *a, **kw):
+        rep = real(stage, *a, **kw)
+        if stage == "C256":
+            cs.sk.spmm_csr.launches += 1
+        return rep
+
+    monkeypatch.setattr(cs.mg, "run", run_and_count)
+    with pytest.raises(AssertionError, match="stage C256: spmm_csr launched"):
+        cs.phase_gather_path(CPU, rows=4096, gathered=1024, iters=1, warmup=0)
+    cs.sk.reset_launch_counts()
+
+
+def test_sage_main_path_phase_rehearsal():
+    info = cs.phase_sage_main_path(CPU, num_nodes=300, epochs=3, sum_epochs=2)
+    assert set(info) == {"mean", "sum"}
+    for run in info.values():
+        assert run["launches"] == 0   # CPU tensors never launch the kernel
+        assert run["train_step_ms"] > 0 and run["eval_ms"] > 0
+    assert info["mean"]["epochs"] == 3 and info["sum"]["epochs"] == 2
+
+
+def test_sage_parity_and_quality_phase_rehearsal():
+    assert cs.phase_sage_parity(CPU, num_nodes=300) == {
+        "mean": 0.0, "sum": 0.0, "max": 0.0, "gcn": 0.0}
+    assert cs.phase_sage_quality(CPU) >= cs.SBM_MIN_TEST_ACC
+
+
 def _run_without_card(cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

@@ -1,10 +1,12 @@
-"""cogdl_tpu_torch on the card: K1, K2 and K3 against their plain versions,
-the autograd Functions, the dispatch rules and the main paths. Every test
+"""cogdl_tpu_torch on the card: K1-K6 against their plain versions, the
+autograd Functions, the dispatch rules and the main paths. Every test
 here needs an NVIDIA card and skips without one. This file imports nothing of jax, so on a
 machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -15,6 +17,15 @@ from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph, sbm_graph
 from cogdl_tpu_torch.ops import spmm
 from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import maybe_cuda_gat_fused
+from cogdl_tpu_torch.ops.cuda.gather_kernels import (
+    gather_block_sum,
+    gather_block_sum_reference,
+    gather_rows_sum,
+    gather_rows_sum_reference,
+    gather_window_sum,
+    gather_window_sum_reference,
+    window_rows,
+)
 from cogdl_tpu_torch.ops.cuda.segment_kernels import (
     GATFusedFunction,
     SpMMFunction,
@@ -28,6 +39,7 @@ from cogdl_tpu_torch.ops.cuda.segment_kernels import (
     spmm_csr_accum_reference,
     spmm_csr_reference,
 )
+from cogdl_tpu_torch.scripts import microbench_gather
 
 # fp32, summation order only (rows of at most a few hundred edges here)
 RTOL, ATOL = 1e-5, 1e-5
@@ -400,3 +412,139 @@ def test_bench_blocked_on_card_goes_through_the_panel_kernels(dev, model,
     else:
         assert gat_pass.launches == 4 * 3 * 6
         assert spmm_csr_accum.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K6: the gather probes
+# ---------------------------------------------------------------------------
+
+GATHER_ROWS = 8192
+
+
+def _gather_case(dev, n_idx, hi, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(GATHER_ROWS, 128, generator=gen, device=dev)
+    idx = torch.randint(0, hi, (n_idx,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return table, idx
+
+
+def _close_per_chunk(out, ref, table, rows, n_chunks):
+    """Within 1e-6 + 1e-5·Σ|terms| a chunk: fp32, summation order only."""
+    scale = table.abs()[rows].reshape(n_chunks, -1).sum(1)
+    assert float(((out - ref).abs() / (1e-6 + 1e-5 * scale)).max()) <= 1.0
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 13])
+@pytest.mark.parametrize("chunk", [1024, 1000, 96, 7])
+def test_gather_block_kernel_matches_plain_version(dev, chunk, n_chunks):
+    table, idx = _gather_case(dev, chunk * n_chunks, chunk, seed=chunk)
+    reset_launch_counts()
+    out = gather_block_sum(table, idx, chunk)
+    torch.cuda.synchronize()
+    assert gather_block_sum.launches == 1
+    assert dict(gather_block_sum.launches_by) == {chunk: 1}
+    assert out.shape == (n_chunks,)
+    _close_per_chunk(out, gather_block_sum_reference(table, idx, chunk),
+                     table, window_rows(idx, GATHER_ROWS, chunk, chunk),
+                     n_chunks)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 5, 37])
+@pytest.mark.parametrize("window", [256, 512, 1024, 4096, 90, 3])
+def test_gather_window_kernel_matches_plain_version(dev, window, n_chunks):
+    table, idx = _gather_case(dev, 1024 * n_chunks, window, seed=window)
+    reset_launch_counts()
+    out = gather_window_sum(table, idx, window)
+    torch.cuda.synchronize()
+    assert dict(gather_window_sum.launches_by) == {window: 1}
+    _close_per_chunk(out, gather_window_sum_reference(table, idx, window),
+                     table, window_rows(idx, GATHER_ROWS, window), n_chunks)
+
+
+def test_gather_window_kernel_takes_short_chunks(dev):
+    table, idx = _gather_case(dev, 50 * 9, 512)
+    out = gather_window_sum(table, idx, 512, chunk=50)
+    _close_per_chunk(out, gather_window_sum_reference(table, idx, 512, 50),
+                     table, window_rows(idx, GATHER_ROWS, 512, 50), 9)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 11])
+@pytest.mark.parametrize("chunk", [1024, 100, 5])
+@pytest.mark.parametrize("outstanding", [1, 2, 4, 8])
+def test_gather_rows_kernel_matches_plain_version(dev, outstanding, chunk,
+                                                  n_chunks):
+    table, idx = _gather_case(dev, chunk * n_chunks, GATHER_ROWS,
+                              seed=outstanding)
+    reset_launch_counts()
+    out = gather_rows_sum(table, idx, chunk, outstanding)
+    torch.cuda.synchronize()
+    assert dict(gather_rows_sum.launches_by) == {outstanding: 1}
+    _close_per_chunk(out, gather_rows_sum_reference(table, idx, chunk), table,
+                     idx.long(), n_chunks)
+
+
+def test_gather_kernels_are_deterministic_and_agree_where_they_overlap(dev):
+    table, idx = _gather_case(dev, 1024 * 6, 1024)
+    a = gather_block_sum(table, idx)
+    assert torch.equal(a, gather_block_sum(table, idx))
+    b = gather_window_sum(table, idx, 1024)
+    assert torch.equal(b, gather_window_sum(table, idx, 1024))
+    rows = window_rows(idx, GATHER_ROWS, 1024)
+    c = gather_rows_sum(table, rows.int(), 1024)
+    assert torch.equal(c, gather_rows_sum(table, rows.int(), 1024))
+    # three kernels, one function on these inputs
+    _close_per_chunk(b, a, table, rows, 6)
+    _close_per_chunk(c, a, table, rows, 6)
+
+
+def test_gather_kernels_clamp_out_of_range_indices(dev):
+    table, idx = _gather_case(dev, 2048, 256)
+    wild = idx.clone()
+    wild[::5] = -3
+    wild[1::5] = 10 ** 6
+    for call, hi in ((lambda i: gather_block_sum(table, i), 1024),
+                     (lambda i: gather_window_sum(table, i, 256), 256),
+                     (lambda i: gather_rows_sum(table, i), GATHER_ROWS)):
+        assert torch.equal(call(wild), call(wild.clamp(0, hi - 1)))
+    torch.cuda.synchronize()
+
+
+def test_gather_wrappers_refuse_on_the_card(dev):
+    table, idx = _gather_case(dev, 2048, 256)
+    with pytest.raises(TypeError):
+        gather_block_sum(table.double(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_window_sum(table.T.contiguous().T, idx, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        gather_rows_sum(torch.randn(GATHER_ROWS * 128 + 1, device=dev)[1:]
+                        .view(GATHER_ROWS, 128), idx)
+    with pytest.raises(ValueError, match="window"):
+        gather_window_sum(table, idx, 8192, chunk=1024)
+    with pytest.raises(ValueError, match="chunk"):
+        gather_rows_sum(table, torch.cat([idx] * 4), chunk=8192)
+    with pytest.raises(ValueError, match="on cpu"):
+        gather_block_sum(table, idx.cpu())
+
+
+def test_probe_script_on_card_launches_each_stage_kernel(dev):
+    for stage in microbench_gather.STAGES:
+        reset_launch_counts()
+        rep = microbench_gather.run(stage, rows=8192, gathered=16384,
+                                    iters=2, warmup=1)
+        mine, key = microbench_gather.stage_case(stage)[4:]
+        for fn in (gather_block_sum, gather_window_sum, gather_rows_sum):
+            assert dict(fn.launches_by) == (
+                {key: rep["calls"]} if fn is mine else {})
+        assert spmm_csr.launches == 0 and rep["calls"] == 4
+
+
+def test_graphsage_on_card_sum_goes_through_k1_and_mean_through_none(dev):
+    for aggr, want in (("mean", 0), ("sum", 2 * (3 * 20 + 2 * 21))):
+        reset_launch_counts()
+        res = experiment(dataset="sbm", model="graphsage", aggr=aggr,
+                         epochs=20, seed=[0, 1], patience=1000)
+        (runs,) = res.values()
+        assert all(math.isfinite(r["train_loss"]) for r in runs)
+        assert spmm_csr.launches == want
+        assert gat_pass.launches == spmm_csr_accum.launches == 0

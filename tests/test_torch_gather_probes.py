@@ -1,0 +1,254 @@
+"""The gather probes: the plain versions of K4, K5 and K6 against the Pallas
+probes of ``scripts/microbench_gather7.py`` run in interpret mode on the CPU,
+against numpy in float64, and the port's probe script end to end.
+
+The JAX script is loaded by path and left as it is: ``pallas_call`` is
+patched to interpret mode and the script's ``N`` (which K5's index map
+reads) to the small table's height, both through ``monkeypatch`` so that
+other test files sharing the worker see neither."""
+
+import functools
+import importlib.util
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from cogdl_tpu_torch.ops.cuda import (
+    gather_block_sum,
+    gather_block_sum_reference,
+    gather_rows_sum,
+    gather_rows_sum_reference,
+    gather_window_sum,
+    gather_window_sum_reference,
+)
+from cogdl_tpu_torch.ops.cuda.gather_kernels import window_rows
+from cogdl_tpu_torch.scripts import microbench_gather as mg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROWS, T = 4096, 1024
+# fp32 sums of the same terms in another order: relative to Σ|terms|, as
+# chip_smoke.py holds the kernels
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture
+def jax_probes(monkeypatch):
+    """``scripts/microbench_gather7.py`` with its kernels in interpret mode
+    over a table of ``ROWS`` rows."""
+    spec = importlib.util.spec_from_file_location(
+        "microbench_gather7",
+        os.path.join(REPO, "scripts", "microbench_gather7.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(mod, "N", ROWS)
+    assert mod.T == T == mg.T
+    return mod
+
+
+def _inputs(n_chunks, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((ROWS, 128)).astype(np.float32)
+    idx = rng.integers(0, hi, n_chunks * T).astype(np.int32)
+    return table, idx
+
+
+def _tol(table, rows):
+    """The tolerance on a sum of ``table[rows]``: ATOL + RTOL·Σ|terms|."""
+    return ATOL + RTOL * float(np.abs(table[rows]).sum())
+
+
+def _numpy_chunks(table, rows, n_chunks):
+    return table.astype(np.float64)[rows].reshape(n_chunks, -1).sum(1)
+
+
+def _held(out, table, rows, n_chunks):
+    """Per-chunk sums within tolerance of numpy's float64 sums."""
+    ref = _numpy_chunks(table, rows, n_chunks)
+    tol = ATOL + RTOL * np.abs(table[rows]).reshape(n_chunks, -1).sum(1)
+    np.testing.assert_array_less(np.abs(out.double().numpy() - ref), tol)
+
+
+def test_block_probe_matches_pallas(jax_probes):
+    n_chunks = 4                      # one chunk per block of the table
+    table, idx = _inputs(n_chunks, T)
+    total_j = float(jax_probes.make_dyn_gather(n_chunks)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    out = gather_block_sum_reference(torch.from_numpy(table),
+                                     torch.from_numpy(idx), T)
+    rows = idx + np.repeat(np.arange(n_chunks) * T, T)
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+    _held(out, table, rows, n_chunks)
+
+
+@pytest.mark.parametrize("window", [256, 512])
+def test_window_probe_matches_pallas(jax_probes, window):
+    n_chunks = 4
+    table, idx = _inputs(n_chunks, window, seed=window)
+    total_j = float(jax_probes.make_onehot(window, n_chunks)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    out = gather_window_sum_reference(torch.from_numpy(table),
+                                      torch.from_numpy(idx), window, T)
+    rows = idx + np.repeat(
+        (np.arange(n_chunks) % (ROWS // window)) * window, T)
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+    _held(out, table, rows, n_chunks)
+
+
+def test_window_probe_wraps_like_pallas(jax_probes):
+    """More chunks than windows: chunk c reads window c % (N // window) in
+    both."""
+    window, n_chunks = 2048, 3         # 2 windows, chunk 2 wraps to window 0
+    table, idx = _inputs(n_chunks, window, seed=7)
+    total_j = float(jax_probes.make_onehot(window, n_chunks)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    out = gather_window_sum_reference(torch.from_numpy(table),
+                                      torch.from_numpy(idx), window, T)
+    rows = idx + np.repeat(np.array([0, 1, 0]) * window, T)
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+    _held(out, table, rows, n_chunks)
+
+
+@pytest.mark.parametrize("outstanding", [4, 8])
+def test_rows_probe_matches_pallas(jax_probes, outstanding):
+    n_chunks = 2                       # the interpret loop is 1024 copies a chunk
+    table, idx = _inputs(n_chunks, ROWS, seed=outstanding)
+    total_j = float(jax_probes.make_row_dma(n_chunks, outstanding)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    out = gather_rows_sum(torch.from_numpy(table), torch.from_numpy(idx), T,
+                          outstanding)
+    assert torch.equal(out, gather_rows_sum_reference(
+        torch.from_numpy(table), torch.from_numpy(idx), T))
+    assert abs(float(out.sum()) - total_j) <= _tol(table, idx)
+    _held(out, table, idx, n_chunks)
+
+
+def test_block_is_the_window_of_chunk_height():
+    table, idx = _inputs(6, T, seed=3)   # 6 chunks over 4 blocks: two wrap
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    assert torch.equal(gather_block_sum(t, i, T),
+                       gather_window_sum(t, i, T, T))
+    rows = window_rows(i, ROWS, T, T)
+    assert rows.dtype == torch.int64
+    assert torch.equal(rows[4 * T: 5 * T], i[4 * T: 5 * T].long())  # block 0
+    assert torch.equal(rows[5 * T:], i[5 * T:].long() + T)          # block 1
+
+
+def test_small_chunks_and_odd_windows():
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((300, 128)).astype(np.float32)
+    chunk, window, n_chunks = 7, 90, 5      # 3 windows of 90 rows
+    idx = rng.integers(0, window, chunk * n_chunks).astype(np.int32)
+    out = gather_window_sum(torch.from_numpy(table), torch.from_numpy(idx),
+                            window, chunk)
+    rows = idx + np.repeat((np.arange(n_chunks) % 3) * window, chunk)
+    np.testing.assert_allclose(out.numpy(),
+                               _numpy_chunks(table, rows, n_chunks),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_out_of_range_indices_are_clamped():
+    table, idx = _inputs(1, 256)
+    t = torch.from_numpy(table)
+    wild = torch.from_numpy(idx).clone()
+    wild[::5] = -3
+    wild[1::5] = 10 ** 6
+    for call, hi in ((lambda i: gather_block_sum(t, i, T), T),
+                     (lambda i: gather_window_sum(t, i, 256, T), 256),
+                     (lambda i: gather_rows_sum(t, i, T), ROWS)):
+        assert torch.equal(call(wild), call(wild.clamp(0, hi - 1)))
+
+
+def _good():
+    table, idx = _inputs(2, 256)
+    return torch.from_numpy(table), torch.from_numpy(idx)
+
+
+CALLS = {"block": lambda t, i: gather_block_sum(t, i, T),
+         "window": lambda t, i: gather_window_sum(t, i, 256, T),
+         "rows": lambda t, i: gather_rows_sum(t, i, T)}
+
+
+@pytest.mark.parametrize("kernel", sorted(CALLS))
+def test_wrappers_refuse_what_the_kernels_do_not_take(kernel):
+    call = CALLS[kernel]
+    t, i = _good()
+    assert call(t, i).shape == (2,)
+    with pytest.raises(TypeError, match="float32"):
+        call(t.double(), i)
+    with pytest.raises(TypeError, match="int32"):
+        call(t, i.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(t.T.contiguous().T, i)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(t, torch.stack([i, i], 1)[:, 0])
+    with pytest.raises(ValueError, match="128"):
+        call(t[:, :64].contiguous(), i)
+    with pytest.raises(ValueError, match="multiple"):
+        call(t, i[:-1].contiguous())
+    if kernel != "rows":       # a table lower than one block or window
+        with pytest.raises(ValueError, match="rows"):
+            call(t[:200].contiguous(), i)
+
+
+def test_rows_wrapper_takes_only_the_built_ring_depths():
+    t, i = _good()
+    with pytest.raises(ValueError, match="outstanding"):
+        gather_rows_sum(t, i, T, outstanding=3)
+
+
+@pytest.mark.parametrize("stage", mg.STAGES)
+def test_probe_script_runs_every_stage_on_the_cpu(stage):
+    rep = mg.run(stage, device="cpu", rows=ROWS, gathered=2 * T, iters=1,
+                 warmup=0)
+    n = T if stage == "D" else 2 * T
+    assert rep["rows_gathered"] == n and rep["calls"] == 2
+    assert rep["ms"] > 0 and np.isfinite(rep["total"])
+    assert rep["ns_per_row"] == pytest.approx(rep["ms"] * 1e6 / n)
+    # the same seed gives the same table and indices: the total is that of
+    # the plain version on them
+    gen = torch.Generator().manual_seed(0)
+    t = torch.randn((ROWS, 128), generator=gen)
+    hi = {"A": ROWS, "B": T, "D": ROWS}.get(stage) or int(stage[1:])
+    idx = torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
+    window = {"A": ROWS, "D": ROWS, "B": T}.get(stage) or int(stage[1:])
+    want = float(t[window_rows(idx, ROWS, window, T)].double().sum())
+    assert rep["total"] == pytest.approx(want, abs=ATOL + RTOL * float(
+        t[window_rows(idx, ROWS, window, T)].abs().sum()))
+
+
+def test_probe_script_main_prints_reports_and_one_json_line(capsys):
+    result = mg.main(["all", "--device", "cpu", "--rows", str(ROWS),
+                      "--gathered", str(T), "--iters", "1", "--warmup", "0"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(mg.STAGES) + 1
+    assert all("ns/row" in ln and " ms " in ln for ln in lines[:-1])
+    assert json.loads(lines[-1]) == result
+    assert [s["stage"] for s in result["stages"]] == list(mg.STAGES)
+    assert result["device"] == "cpu" and result["chunk"] == T
+
+
+def test_probe_script_defaults_to_the_card_and_checks_sizes():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mg.run("B")
+    with pytest.raises(ValueError, match="multiple"):
+        mg.run("B", device="cpu", rows=ROWS, gathered=1000)
+    with pytest.raises(ValueError, match="unknown stage"):
+        mg.run("C128", device="cpu", rows=ROWS, gathered=T)
+    assert (mg.N, mg.E, mg.T, mg.WINDOWS) == (100_352, 3_145_728, 1024,
+                                              (256, 512, 1024))
+
+
+def test_jax_script_is_untouched_by_the_patches(jax_probes):
+    """The fixture patches a fresh module object and ``pl.pallas_call``
+    only for this test; the file itself keeps its sizes."""
+    src = open(os.path.join(REPO, "scripts", "microbench_gather7.py")).read()
+    assert "N = 100_352" in src and "E = 3_145_728" in src
+    assert jax_probes.N == ROWS and jax_probes.E == mg.E
