@@ -11,7 +11,11 @@ kernel, compares card and CPU logits, and checks accuracy on ``sbm``. Then
 the products-scale path of ``cogdl_tpu_torch.bench`` (2.45 M nodes, about
 125 M edges, the panel structure built on the card): K2 and K3's
 accumulating form against their plain versions panel by panel, a sweep of
-panel heights, and GCN and GAT train steps with exact launch counts. Then
+panel heights, and GCN and GAT train steps with exact launch counts. K1 and
+K2 cut their work by edge chunks: both are also held against their plain
+versions on structures that sit on the chunk schedule's edges (a star, rows
+of exactly one chunk more or less, no edge at all), and the chunk size is
+swept. Then
 the gather probes (K4, K5 and K6 against their plain versions at the sizes of
 ``cogdl_tpu_torch.scripts.microbench_gather``, and every stage of that
 script with exact launch counts) and full-batch GraphSAGE through
@@ -52,7 +56,16 @@ from cogdl_tpu_torch.ops import (
     mh_spmm,
 )
 from cogdl_tpu_torch.ops.cuda import gather_kernels as gk
-from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
+from cogdl_tpu_torch.ops.cuda import (
+    CHUNK_EDGES,
+    SCHEDULE_KEYS,
+    SpmmSchedule,
+    build_spmm_schedule,
+    build_spmm_structure,
+    prepare_spmm,
+    prepare_spmm_device,
+    stored_schedule,
+)
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
 from cogdl_tpu_torch.utils.timing import time_ms
@@ -107,7 +120,7 @@ GATHER_ROWS_SOURCE = "cogdl_tpu_torch/csrc/gather_rows_async.cu"
 GATHER_ROWS_REPLACES = "scripts/microbench_gather7.py:165"
 # GraphSAGE's short run with the "sum" aggregator (the K1 count) and the
 # aggregators whose card logits are held against the CPU's
-SAGE_SUM_EPOCHS = 5
+SAGE_SUM_EPOCHS = 30
 SAGE_AGGREGATORS = ("mean", "sum", "max", "gcn")
 
 # the products-scale path (bench --products): 2.45M nodes x 50, a few steps
@@ -118,7 +131,15 @@ PRODUCTS_STEPS = 3
 CHECK_PANELS = 4
 # the panel sweep: 1 is the one-shot K1, the others K2 over that many panels,
 # from slices of the feature table above the 50 MB L2 to a tenth of it
-SWEEP_PANELS = (1, 8, 32, 128, 256)
+SWEEP_PANELS = (1, 2, 4, 8, 32, 128, 256)
+# the panel count of the sweep at which a panel's time is taken apart: slices
+# of about 10 MB, the default height before K2 was cut by edges
+SPLIT_PANELS = 128
+# the chunk sweep: edges a warp of K1/K2 takes
+SWEEP_CHUNK_EDGES = (32, 64, 128, 256)
+# widths of the adversarial checks: float4 lanes, two columns a lane, float4
+# with idle lanes
+ADVERSARIAL_FEATS = (HIDDEN, NUM_CLASSES, FEAT_DIM)
 
 
 def smi_line() -> str:
@@ -194,6 +215,23 @@ def scaled_err(out, ref, scale):
     return float((d / (KERNEL_ATOL + KERNEL_RTOL * scale.detach())).max())
 
 
+def schedule_stats(sched: SpmmSchedule):
+    """``(chunks, rows cut across chunks)`` of a schedule, padding left out."""
+    starts = sched.chunk_start
+    return (int((starts[..., 1:] > starts[..., :-1]).sum()),
+            int((sched.cross[..., 0] >= 0).sum()))
+
+
+def schedule_build_s(ptr, erow, device: torch.device,
+                     chunk_edges: int = CHUNK_EDGES):
+    """The schedule of ``ptr`` built anew, and the seconds that took."""
+    _sync(device)
+    t0 = time.perf_counter()
+    sched = build_spmm_schedule(ptr, chunk_edges, erow)
+    _sync(device)
+    return sched, time.perf_counter() - t0
+
+
 def phase_device() -> str:
     line = smi_line()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -224,8 +262,9 @@ def kernel_graph(num_nodes: int, device: torch.device):
 def phase_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
                        iters: int = 20):
     """K1 against spmm_csr_reference over CSR(A) and CSR(Aᵀ) at F=128 and
-    F=47, then the autograd Function against plain autograd. Returns one
-    measurement entry per case."""
+    F=47: the kernel the wrapper chooses and each one by name, a second call and a call with the schedule the wrapper builds itself bit
+    for bit equal; then the autograd Function against plain autograd.
+    Returns one measurement entry per case."""
     g = kernel_graph(num_nodes, device)
     ex = g.extras
     gen = torch.Generator(device=device).manual_seed(0)
@@ -234,37 +273,59 @@ def phase_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
         ptr, col, w = (ex[f"spmm_{direction}_ptr"], ex[f"spmm_{direction}_col"],
                        ex[f"spmm_{direction}_w"])
         n, nnz = ptr.numel() - 1, col.numel()
+        sched = stored_schedule(ex, direction)
+        _, structure_s = schedule_build_s(ptr, sched.erow, device)
+        chunks, cross_rows = schedule_stats(sched)
         # x rows the structure reads: pad rows are named by no real edge
         x_rows = int(torch.unique(col).numel())
         lib_a = torch.sparse_csr_tensor(ptr, col, w, size=(n, n),
                                         check_invariants=False)
         for feat in (HIDDEN, NUM_CLASSES):
             x = torch.randn(n, feat, generator=gen, device=device)
-            out = sk.spmm_csr(ptr, col, w, x, structure)
+            def run(kernel=None, schedule=sched):
+                return sk.spmm_csr(ptr, col, w, x, structure,
+                                   schedule=schedule, kernel=kernel)
+
+            out = run()
+            per_call, ran = sk.spmm_csr.cuda_kernels, sk.spmm_csr.kernel
             ref = sk.spmm_csr_reference(ptr, col, w, x)
             scale = sk.spmm_csr_reference(ptr, col, w.abs(), x.abs())
-            err = scaled_err(out, ref, scale)
             name = f"spmm_csr[{structure},F={feat}]"
+            err = max(scaled_err(o, ref, scale)
+                      for o in (out, *(run(k) for k in sk.K1_KERNELS)))
             if not err <= 1.0:
                 raise AssertionError(f"{name}: kernel disagrees with its plain "
                                      f"version ({err:.3g} x tolerance)")
+            if not (torch.equal(out, run())
+                    and torch.equal(out, run(schedule=None))):
+                raise AssertionError(
+                    f"{name}: a second call, or a call with the schedule the "
+                    "wrapper builds, gave other bits")
             b_ms, b_by = bound_ms(n, nnz, feat, x_rows)
+            ms = time_ms(run, device, iters)
+            lib_ms = time_ms(lambda: torch.sparse.mm(lib_a, x), device, iters)
             entry = {
                 "name": name, "route": "cuda", "source": SPMM_SOURCE,
                 "replaces": SPMM_REPLACES, "launches": None,
                 "case": ["spmm_csr", structure, feat],
                 "max_abs_err": float((out - ref).abs().max()),
                 "err_over_tol": err,
-                "ms": time_ms(lambda: sk.spmm_csr(ptr, col, w, x, structure),
-                              device, iters),
+                "ms": ms,
                 "plain_ms": time_ms(
                     lambda: sk.spmm_csr_reference(ptr, col, w, x), device,
                     max(iters // 4, 1)),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, x), device,
-                                      iters),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 "rows": n, "x_rows": x_rows, "nnz": nnz, "max_row_nnz": int(
                     (ptr[1:] - ptr[:-1]).max()),
+                "kernel": "chunks" if cross_rows else "rows",
+                "kernel_ran": ran, "chunk_edges": CHUNK_EDGES, "chunks": chunks,
+                "cross_rows": cross_rows,
+                "scratch_rows": sched.piece_row.shape[-1],
+                "cuda_kernels_per_call": per_call,
+                "ms_over_library": ms / lib_ms, "share_of_bound": b_ms / ms,
+                "structure_s": structure_s,
+                **{f"ms_{k}": time_ms(lambda: run(k), device, iters)
+                   for k in sk.K1_KERNELS},
             }
             print(f"[kernel] {json.dumps(entry)}")
             entries.append(entry)
@@ -276,7 +337,8 @@ def phase_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
                     requires_grad=True)
     w = keys[2].clone().requires_grad_(True)
     probe = torch.randn(g.n_pad, NUM_CLASSES, generator=gen, device=device)
-    y = sk.SpMMFunction.apply(x, keys[0], keys[1], w, *keys[3:])
+    y = sk.SpMMFunction.apply(x, keys[0], keys[1], w, *keys[3:],
+                              stored_schedule(ex, "fw"), stored_schedule(ex, "bw"))
     dx, dw = torch.autograd.grad((y * probe).sum(), (x, w))
     x_ref = x.detach().clone().requires_grad_(True)
     w_ref = keys[2].clone().requires_grad_(True)
@@ -594,19 +656,23 @@ def _panel_stats(ptr: torch.Tensor, col: torch.Tensor):
             int((ptr[1:] > ptr[:-1]).sum()))
 
 
-def accum_check(ptrs, col, w, x, acc0, structure: str, device: torch.device):
+def accum_check(ptrs, col, w, x, acc0, structure: str, device: torch.device,
+                sched=None):
     """K2 panel by panel from the non-zero ``acc0`` against its plain
-    version run the same way. After every call the rows without an edge in
-    the panel must hold what they held, bit for bit. Returns ``(acc, error
-    over tolerance, largest absolute error, plain ms per sweep)``; the
-    tolerance is relative to ``|acc0| + Σ|w·x|`` of each element."""
+    version run the same way, with the panel structure's schedule ``sched``
+    or, without one, the schedule the wrapper builds. After every call the
+    rows without an edge in the panel must hold what they held, bit for bit.
+    Returns ``(acc, error over tolerance, largest absolute error, plain ms
+    per sweep)``; the tolerance is relative to ``|acc0| + Σ|w·x|`` of each
+    element."""
     acc, ref, scale = acc0.clone(), acc0.clone(), acc0.abs()
     xa, wa = x.abs(), w.abs()
     plain_ms = 0.0
     for p, ptr in enumerate(ptrs):
         untouched = ptr[1:] == ptr[:-1]
         before = acc[untouched]
-        sk.spmm_csr_accum(acc, ptr, col, w, x, structure)
+        sk.spmm_csr_accum(acc, ptr, col, w, x, structure,
+                          schedule=sched and sched.panel(p))
         if not torch.equal(acc[untouched], before):
             raise AssertionError(f"spmm_csr_accum[{structure}]: panel {p} "
                                  "changed rows it has no edge for")
@@ -631,9 +697,8 @@ def _panel_graph(num_nodes: int, device: torch.device, n_panels: int):
 def phase_accum_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
                              n_panels: int = CHECK_PANELS):
     """K2 against spmm_csr_accum_reference over the panels of CSR(A) and
-    CSR(Aᵀ) at F=128 and F=47 from a non-zero accumulator, and the sum over
-    the panels against one K1 call on the unpanelled CSR. Returns the errors
-    over tolerance."""
+    CSR(Aᵀ) at F=128 and F=47 from a non-zero accumulator, and the sum over the panels against one K1
+    call on the unpanelled CSR. Returns the errors over tolerance."""
     g, gp = _panel_graph(num_nodes, device, n_panels)
     gen = torch.Generator(device=device).manual_seed(3)
     report = {}
@@ -646,9 +711,11 @@ def phase_accum_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
         for feat in (HIDDEN, NUM_CLASSES):
             x = torch.randn(g.n_pad, feat, generator=gen, device=device)
             acc0 = torch.randn(g.n_pad, feat, generator=gen, device=device)
-            acc, err, _, _ = accum_check(ptrs, col, w, x, acc0, structure,
-                                         device)
-            total = sk.spmm_csr(*one, x, structure)
+            acc, err, _, _ = accum_check(
+                ptrs, col, w, x, acc0, structure, device,
+                stored_schedule(gp.extras, direction))
+            total = sk.spmm_csr(*one, x, structure,
+                                schedule=stored_schedule(g.extras, direction))
             scale = acc0.abs() + sk.spmm_csr_reference(
                 one[0], one[1], one[2].abs(), x.abs())
             report[f"{structure},F={feat}"] = {
@@ -674,7 +741,9 @@ def phase_panel_autograd(device: torch.device, num_nodes: int = NUM_NODES,
                     requires_grad=True)
     w = keys[2].clone().requires_grad_(True)
     probe = torch.randn(g.n_pad, NUM_CLASSES, generator=gen, device=device)
-    y = sk.SpMMPanelFunction.apply(x, keys[0], keys[1], w, *keys[3:])
+    y = sk.SpMMPanelFunction.apply(
+        x, keys[0], keys[1], w, *keys[3:], stored_schedule(gp.extras, "fw"),
+        stored_schedule(gp.extras, "bw"))
     dx, dw = torch.autograd.grad((y * probe).sum(), (x, w))
     row = torch.cat([sk.panel_edges(ptr)[1] for ptr in keys[0]])
     col = keys[1].long()
@@ -786,11 +855,13 @@ def phase_gat_accum_check(device: torch.device, num_nodes: int = NUM_NODES,
 
 def phase_panel_sweep(device: torch.device, nodes: int = PRODUCTS_NODES,
                       avg_degree: int = PRODUCTS_AVG_DEGREE,
-                      panels=SWEEP_PANELS, steps: int = 2):
+                      panels=SWEEP_PANELS, steps: int = 2,
+                      split_at: int = SPLIT_PANELS):
     """GCN train step without the propagation cache at the products shape
     over structures of 1 panel (one-shot K1, ``panel_rows=0``) and of more
-    (K2): one warm-up step, then ``steps`` timed. Recorded, no limit; the
-    default panel budget of ``device_layout`` is read off this table."""
+    (K2): one warm-up step, then ``steps`` timed. Recorded, no limit; what
+    ``device_layout`` says of its default panel count is read off this table. At
+    ``split_at`` panels the row also holds :func:`accum_hub_split`."""
     g = powerlaw_graph_device(nodes, avg_degree=avg_degree, feat_dim=FEAT_DIM,
                               device=device)
     args = bench.parse_args(["--model", "gcn", "--no-prop-cache", "--warmup",
@@ -816,6 +887,8 @@ def phase_panel_sweep(device: torch.device, nodes: int = PRODUCTS_NODES,
                "kernel": "K1" if n_panels == 1 else "K2",
                "step_ms_no_cache": dt * 1e3, "structure_s": build_s}
         print(f"[sweep] {json.dumps(row)}")
+        if n_panels == split_at:
+            row["hub_split"] = accum_hub_split(gp.extras, g.n_pad, device)
         rows.append(row)
         del gp, model, opt
     return rows
@@ -829,6 +902,9 @@ def _accum_entries(ex, n_pad: int, device: torch.device, iters: int, launches):
     panels is beside them."""
     ptrs, col, w = ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"]
     n_panels = ptrs.shape[0]
+    sched = stored_schedule(ex, "fw")
+    _, structure_s = schedule_build_s(ptrs, sched.erow, device)
+    chunks, cross_rows = schedule_stats(sched)
     stats = [_panel_stats(ptr, col) for ptr in ptrs]
     gen = torch.Generator(device=device).manual_seed(6)
     entries = []
@@ -836,17 +912,19 @@ def _accum_entries(ex, n_pad: int, device: torch.device, iters: int, launches):
         x = torch.randn(n_pad, feat, generator=gen, device=device)
         acc0 = torch.randn(n_pad, feat, generator=gen, device=device)
         acc, err, max_abs, plain_ms = accum_check(ptrs, col, w, x, acc0,
-                                                  "csr", device)
+                                                  "csr", device, sched)
         name = f"spmm_csr_accum[F={feat}]"
         if not err <= 1.0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({err:.3g} x tolerance)")
         del acc0
-        ms_by_panel, lib_by_panel = [], []
-        for ptr in ptrs:
+        ms_by_panel, lib_by_panel, per_call = [], [], []
+        for p, ptr in enumerate(ptrs):
             ms_by_panel.append(time_ms(
-                lambda: sk.spmm_csr_accum(acc, ptr, col, w, x, "csr"),
+                lambda: sk.spmm_csr_accum(acc, ptr, col, w, x, "csr",
+                                          schedule=sched.panel(p)),
                 device, iters, warmup=1))
+            per_call.append(sk.spmm_csr_accum.cuda_kernels)
             lo, hi = int(ptr[0]), int(ptr[-1])
             lib_a = torch.sparse_csr_tensor(ptr - lo, col[lo:hi], w[lo:hi],
                                             size=(n_pad, n_pad),
@@ -875,11 +953,96 @@ def _accum_entries(ex, n_pad: int, device: torch.device, iters: int, launches):
             "nnz_panel_min": min(st[0] for st in stats),
             "nnz_panel_max": max(st[0] for st in stats),
             "max_row_nnz": int((ptrs[:, 1:] - ptrs[:, :-1]).max()),
+            "chunk_edges": CHUNK_EDGES, "chunks": chunks,
+            "cross_rows": cross_rows,
+            "scratch_rows": sched.piece_row.shape[-1],
+            "cuda_kernels_per_call": max(per_call),
+            "cuda_kernels_sweep": sum(per_call),
+            "ms_over_library": sum(ms_by_panel) / sum(lib_by_panel),
+            "share_of_bound": sum(b for b, _ in bounds) / sum(ms_by_panel),
+            "structure_s": structure_s,
         }
         print(f"[products-kernel] {json.dumps(entry)}")
         entries.append(entry)
         del x, acc
     return entries
+
+
+def accum_chunk_sweep(ex, n_pad: int, device: torch.device,
+                      chunk_edges=SWEEP_CHUNK_EDGES, iters: int = 2):
+    """K2's sweep over all panels of the structure at each chunk size and
+    both widths, the schedule rebuilt for each (recorded, no limit)."""
+    ptrs, col, w = ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"]
+    erow = ex["spmm_fw_erow"]
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows = []
+    for feat in (HIDDEN, NUM_CLASSES):
+        x = torch.randn(n_pad, feat, generator=gen, device=device)
+        acc = torch.zeros(n_pad, feat, device=device)
+        for t_edges in chunk_edges:
+            sched, build_s = schedule_build_s(ptrs, erow, device, t_edges)
+
+            def sweep():
+                for p, ptr in enumerate(ptrs):
+                    sk.spmm_csr_accum(acc, ptr, col, w, x, "csr",
+                                      schedule=sched.panel(p))
+
+            chunks, cross_rows = schedule_stats(sched)
+            row = {"kernel": "spmm_csr_accum", "F": feat,
+                   "chunk_edges": t_edges, "chunks": chunks,
+                   "cross_rows": cross_rows, "panels": ptrs.shape[0],
+                   "sweep_ms": time_ms(sweep, device, iters, warmup=1),
+                   "structure_s": build_s}
+            print(f"[chunk-sweep] {json.dumps(row)}")
+            rows.append(row)
+            del sched
+        del x, acc
+    return rows
+
+
+def accum_hub_split(ex, n_pad: int, device: torch.device, iters: int = 5):
+    """What a panel's time is made of under each design, on the middle
+    panel of the structure at F=128 and F=47 (recorded, no limit). The
+    row-a-warp K1 kernel stands for a K2 that gives a row to a warp (it is
+    that loop without the read-modify-write, and it writes zeros into the
+    rows without an edge, which such a K2 would leave alone): the panel as
+    it is, the panel without its longest row's edges (what is saved is the
+    hub slice), and a structure of as many rows with no edge at all (what
+    remains is the warps that read two row pointers, write a row of zeros
+    and leave). Beside them the chunk kernel on the first two."""
+    ptrs, col, w = ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"]
+    ptr = ptrs[ptrs.shape[0] // 2]
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    lens = ptr[1:] - ptr[:-1]
+    hub = int(lens.argmax())
+    a, b = int(ptr[hub]) - lo, int(ptr[hub + 1]) - lo
+    keep = torch.ones(hi - lo, dtype=torch.bool, device=device)
+    keep[a:b] = False
+    cases = {"panel": (ptr - lo, col[lo:hi].contiguous(),
+                       w[lo:hi].contiguous())}
+    cut = (ptr - lo).clone()
+    cut[hub + 1:] -= b - a
+    cases["panel_without_hub_row"] = (cut, cases["panel"][1][keep],
+                                      cases["panel"][2][keep])
+    cases["rows_without_edges"] = (torch.zeros_like(ptr), col[:0], w[:0])
+    gen = torch.Generator(device=device).manual_seed(10)
+    report = {"panel": ptrs.shape[0] // 2, "nnz": hi - lo,
+              "hub_row_nnz": b - a, "rows": n_pad,
+              "rows_with_edge": int((lens > 0).sum())}
+    for feat in (HIDDEN, NUM_CLASSES):
+        x = torch.randn(n_pad, feat, generator=gen, device=device)
+        for name, (cptr, ccol, cw) in cases.items():
+            sched = build_spmm_schedule(cptr)
+            for kernel in ("rows", "chunks"):
+                if kernel == "chunks" and name == "rows_without_edges":
+                    continue
+                report[f"{name},F={feat},{kernel}_ms"] = time_ms(
+                    lambda: sk.spmm_csr(cptr, ccol, cw, x, "csr",
+                                        schedule=sched, kernel=kernel),
+                    device, iters, warmup=1)
+        del x
+    print(f"[hub-split] {json.dumps(report)}")
+    return report
 
 
 def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
@@ -1045,6 +1208,10 @@ def phase_products(device: torch.device, model: str,
     del net, opt, runs
     entries = (_accum_entries if model == "gcn" else _gat_accum_entries)(
         ex, graph.n_pad, device, iters, total)
+    if model == "gcn":
+        # the launches counted above are the main path's, not the probes'
+        info["chunk_sweep"] = accum_chunk_sweep(ex, graph.n_pad, device,
+                                                iters=iters)
     return info, entries
 
 
@@ -1082,6 +1249,171 @@ def phase_panel_parity(device: torch.device,
     print(f"[panel-parity] max |logits_{device.type} - logits_cpu| = "
           f"{json.dumps(diffs)} ({num_nodes} nodes, {n_panels} panels)")
     return diffs
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 by edge chunks: adversarial structures and the chunk sweep
+# ---------------------------------------------------------------------------
+
+def adversarial_structures(device: torch.device, chunk: int = CHUNK_EDGES,
+                           seed: int = 11):
+    """Edge lists ``(name, row, col, n)`` built on ``device`` from ``seed``
+    that sit on the chunk schedule's edges, ``T`` edges a chunk: a star (one
+    row holds every edge); rows of exactly T−1, T, T+1 and 2T edges, a row
+    that ends on a chunk boundary, rows without an edge at the start,
+    between and at the end; no edge at all; a small power-law graph; and
+    ``middle_third_unnamed``, whose columns leave the middle third of the
+    rows out, so that the middle one of three source panels is empty."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = chunk
+
+    def edges(lens, n, col_hi=None):
+        lens = torch.tensor(lens, device=device)
+        row = torch.repeat_interleave(
+            torch.arange(lens.numel(), device=device), lens)
+        col = torch.randint(0, col_hi or n, (row.numel(),), generator=gen,
+                            device=device)
+        return row, col, n
+
+    n = 6 * 64
+    # T−1, T, T+1 | 2T | T: the fifth row ends on boundary 6T
+    mixed = [0, 0, t - 1, t, t + 1, 0, 2 * t, t, 0, 3, 2 * t + 5, 1, 0, 0]
+    out = [("star", *edges([0] * 5 + [20 * t + 7], n)),
+           ("mixed_rows", *edges(mixed, n)),
+           ("no_edge", *edges([0] * n, n))]
+    row, col, _ = edges([3] * 100 + [5 * t + 1] + [1] * 50 + [t] * 3, n,
+                        col_hi=n // 3)
+    col = torch.where(torch.arange(col.numel(), device=device) % 2 == 0,
+                      col, col + 2 * (n // 3))
+    out.append(("middle_third_unnamed", row, col, n))
+    g = powerlaw_graph(n, avg_degree=12, feat_dim=4, num_classes=3, seed=seed)
+    E = g.num_edges
+    out.append(("powerlaw", g.row[:E].long().to(device),
+                g.col[:E].long().to(device), n))
+    return out
+
+
+def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
+                      n_panels: int = 3):
+    """K1 (the kernel the wrapper chooses and each one by name) and K2 (over
+    ``n_panels`` source panels, from a non-zero accumulator, rows without an
+    edge bit-equal after every call) against their plain versions on
+    :func:`adversarial_structures`, both directions, every width of
+    ``feats``. Hard limits: every element within ``KERNEL_ATOL +
+    KERNEL_RTOL·Σ|terms|``; two calls on the same inputs equal bit for bit;
+    the prepared schedule and the one the wrapper builds equal bit for bit.
+    Returns the largest error over tolerance per structure."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    report = {}
+    for name, row, col, n in adversarial_structures(device):
+        wts = torch.randn(row.numel(), generator=gen, device=device)
+        worst = 0.0
+        for structure, (r, c) in (("csr", (row, col)), ("csc", (col, row))):
+            one = build_spmm_structure(r, c, wts, n)
+            pan = build_spmm_structure(r, c, wts, n,
+                                       panel_rows=-(-n // n_panels))
+            s_one, s_pan = (SpmmSchedule(*(st[k] for k in SCHEDULE_KEYS))
+                            for st in (one, pan))
+            if name == "middle_third_unnamed" and structure == "csr" and (
+                    int(pan["ptr"][1, -1] - pan["ptr"][1, 0]) != 0):
+                raise AssertionError("the middle panel should hold no edge")
+            for feat in feats:
+                x = torch.randn(n, feat, generator=gen, device=device)
+                args = (one["ptr"], one["col"], one["w"], x, structure)
+                ref = sk.spmm_csr_reference(*args[:4])
+                scale = sk.spmm_csr_reference(one["ptr"], one["col"],
+                                              one["w"].abs(), x.abs())
+                out = sk.spmm_csr(*args, schedule=s_one)
+                same = (torch.equal(out, sk.spmm_csr(*args, schedule=s_one))
+                        and torch.equal(out, sk.spmm_csr(*args)))
+                for kernel in sk.K1_KERNELS:
+                    named = [sk.spmm_csr(*args, schedule=s_one, kernel=kernel)
+                             for _ in range(2)]
+                    worst = max(worst, scaled_err(named[0], ref, scale))
+                    same = same and torch.equal(*named)
+                worst = max(worst, scaled_err(out, ref, scale))
+                acc0 = torch.randn(n, feat, generator=gen, device=device)
+                accs = [accum_check(pan["ptr"], pan["col"], pan["w"], x, acc0,
+                                    structure, device, sched)
+                        for sched in (s_pan, s_pan, None)]
+                worst = max(worst, accs[0][1])
+                same = same and all(torch.equal(accs[0][0], a[0])
+                                    for a in accs[1:])
+                if not same:
+                    raise AssertionError(
+                        f"adversarial {name} [{structure},F={feat}]: a second "
+                        "call, or the schedule the wrapper builds, gave "
+                        "other bits")
+        report[name] = worst
+    print(f"[adversarial] chunk_edges={CHUNK_EDGES} err/tol "
+          f"{json.dumps(report)}")
+    if not max(report.values()) <= 1.0:
+        raise AssertionError(f"K1/K2 disagree with their plain versions on "
+                             f"an adversarial structure: {report}")
+    return report
+
+
+def phase_chunk_sweep(device: torch.device, num_nodes: int = NUM_NODES,
+                      chunk_edges=SWEEP_CHUNK_EDGES, iters: int = 20):
+    """K1's chunk kernel over CSR(A) and CSR(Aᵀ) of the main path's graph at
+    F=128 and F=47 for each chunk size, the schedule rebuilt for each and
+    the result held against the plain version (hard limit); times recorded,
+    no limit. ``CHUNK_EDGES`` of ``device_layout`` is read off this table
+    and K2's, which :func:`phase_products` prints."""
+    g = kernel_graph(num_nodes, device)
+    ex = g.extras
+    gen = torch.Generator(device=device).manual_seed(13)
+    rows = []
+    for direction, structure in (("fw", "csr"), ("bw", "csc")):
+        ptr, col, w, erow = (ex[f"spmm_{direction}_{k}"]
+                             for k in ("ptr", "col", "w", "erow"))
+        for feat in (HIDDEN, NUM_CLASSES):
+            x = torch.randn(g.n_pad, feat, generator=gen, device=device)
+            ref = sk.spmm_csr_reference(ptr, col, w, x)
+            scale = sk.spmm_csr_reference(ptr, col, w.abs(), x.abs())
+            for t_edges in chunk_edges:
+                sched, build_s = schedule_build_s(ptr, erow, device, t_edges)
+
+                def run():
+                    return sk.spmm_csr(ptr, col, w, x, structure,
+                                       schedule=sched, kernel="chunks")
+
+                err = scaled_err(run(), ref, scale)
+                if not err <= 1.0:
+                    raise AssertionError(
+                        f"spmm_csr[{structure},F={feat}] at {t_edges} edges "
+                        f"a chunk disagrees with its plain version "
+                        f"({err:.3g} x tolerance)")
+                chunks, cross_rows = schedule_stats(sched)
+                row = {"kernel": "spmm_csr", "structure": structure,
+                       "F": feat, "chunk_edges": t_edges, "chunks": chunks,
+                       "cross_rows": cross_rows, "err_over_tol": err,
+                       "cuda_kernels_per_call": sk.spmm_csr.cuda_kernels,
+                       "ms": time_ms(run, device, iters),
+                       "structure_s": build_s}
+                print(f"[chunk-sweep] {json.dumps(row)}")
+                rows.append(row)
+    return rows
+
+
+def tail_report(entries):
+    """The ratios that say whether the hub tail is gone, from the kernel
+    entries of this run (recorded, no limit): K1 over CSR(Aᵀ) against K1
+    over CSR(A) at the same width, and K1 and K2 against the one PyTorch
+    call for the same function."""
+    by_name = {e["name"]: e for e in entries}
+    report = {}
+    for feat in (HIDDEN, NUM_CLASSES):
+        fw = by_name[f"spmm_csr[csr,F={feat}]"]
+        bw = by_name[f"spmm_csr[csc,F={feat}]"]
+        k2 = by_name[f"spmm_csr_accum[F={feat}]"]
+        report[f"F={feat}"] = {
+            "k1_csc_over_csr": bw["ms"] / fw["ms"],
+            "k1_csr_over_library": fw["ms_over_library"],
+            "k1_csc_over_library": bw["ms_over_library"],
+            "k2_sweep_over_library": k2["ms_over_library"]}
+    print(f"[tail] {json.dumps(report)}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1320,6 +1652,8 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     entries = timed(phase_kernel_check, device)
+    timed(phase_adversarial, device)
+    timed(phase_chunk_sweep, device)
     main_info = timed(phase_main_path, device)
     timed(phase_parity, device)
     timed(phase_quality, device)
@@ -1344,6 +1678,7 @@ def main() -> int:
     gcn_info, gcn_entries = timed(phase_products, device, "gcn")
     gat_prod_info, gat_entries = timed(phase_products, device, "gat")
     entries += gcn_entries + gat_entries
+    tail_report(entries)
     # the gather probes and full-batch GraphSAGE
     gather_entries = timed(phase_gather_kernel_check, device)
     gather_info = timed(phase_gather_path, device)
@@ -1361,7 +1696,8 @@ def main() -> int:
           f"{gcn_info['cached_step_ms']:.1f} (no cache "
           f"{gcn_info['uncached_step_ms']:.1f}), GAT step_ms="
           f"{gat_prod_info['step_ms']:.1f} over "
-          f"{gcn_info['panels']} panels; sweep best "
+          f"{gcn_info['panels']} and {gat_prod_info['panels']} panels; "
+          f"sweep best "
           f"{min(sweep, key=lambda r: r['step_ms_no_cache'])['panels']} "
           f"panels; GraphSAGE main path (mean) train_step_ms="
           f"{sage_info['mean']['train_step_ms']:.3f} "

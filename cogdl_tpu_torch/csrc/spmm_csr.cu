@@ -15,53 +15,54 @@
 // What bounds it on an H100: bytes. Per call it must read row_ptr, col and w
 // once, the feature table x once and write out once; the arithmetic is
 // 2*E*F flops, far below the card's fp32 rate. The x rows are read once per
-// incident edge, so the real traffic is E*F*4 bytes of gathers, served from
-// L2 when x fits there (100k x 128 fp32 = 51 MB).
+// incident edge, so the traffic that sets the time is E*F*4 bytes of
+// gathers, served from L2 when x fits there (100k x 128 fp32 = 51 MB), and
+// what a design can lose on top of that is balance: the rows of CSR(A^T) of
+// a power-law graph run from 1 edge to tens of thousands.
 //
-// Design (simple and deterministic; load balancing, cp.async/TMA staging
-// and wgmma are later work):
-//   * one warp per destination row, the 32 lanes across feature columns
-//     (4 columns a lane as float4 when F % 4 == 0 and both tables are
-//     16-byte aligned, else 1 column a lane);
-//   * each lane loads one (col, w) pair of a 32-edge batch, coalesced, and
-//     the warp broadcasts them with __shfl_sync;
-//   * fp32 accumulation in registers, each output row written once, no
-//     atomics — the result does not depend on scheduling.
-// A row with many edges (the hub columns of the backward CSR on power-law
-// graphs) runs serially on one warp: a known long tail of this design.
+// Design: the work is cut by edges (spmm_chunk.cuh). One warp owns a chunk
+// of about T consecutive edges of the flat edge array, so every warp has the
+// same work whatever the degrees; rows inside a chunk are written by that
+// warp, the rows longer than T leave one partial sum a chunk in a scratch
+// table that holds nothing else, and a second small kernel adds them in
+// chunk order. Rows without an
+// edge, which no chunk names, are zeroed by extra blocks of the first launch.
+// fp32 accumulation, no atomics, one writer per output element: the result
+// does not depend on scheduling.
+//
+// A structure without a row longer than T (the schedule records that: its
+// list of cut rows is empty) may take the row-a-warp kernels below instead:
+// one warp a row, the 32 lanes across the feature columns, no schedule read.
+// The caller chooses between the two by that property of the graph.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "spmm_chunk.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+using spmm_chunk::aligned16;
+using spmm_chunk::fma_to;
+using spmm_chunk::kFullMask;
+using spmm_chunk::kWarpsPerBlock;
+using spmm_chunk::set_zero;
 
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& v) {
-  acc.x = fmaf(s, v.x, acc.x);
-  acc.y = fmaf(s, v.y, acc.y);
-  acc.z = fmaf(s, v.z, acc.z);
-  acc.w = fmaf(s, v.w, acc.w);
-}
-
-// x and out are viewed as [n_rows, f4] float4 tables (f4 = F / 4).
+// One warp a row. x and out are tables of fv elements of V (float4 or
+// float) a row; the last 32-element group is masked.
+template <typename V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_csr_vec4_kernel(const int* __restrict__ row_ptr,
-                     const int* __restrict__ col,
-                     const float* __restrict__ w,
-                     const float4* __restrict__ x,
-                     float4* __restrict__ out,
-                     int n_rows, int f4) {
+spmm_csr_rows_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ col, const float* __restrict__ w,
+                     const V* __restrict__ x, V* __restrict__ out, int n_rows,
+                     int fv) {
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;  // warp-uniform: the whole warp leaves
   const int start = row_ptr[row];
   const int end = row_ptr[row + 1];
-  for (int base = 0; base < f4; base += 32) {
+  for (int base = 0; base < fv; base += 32) {
     const int f = base + lane;
-    const bool active = f < f4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    const bool active = f < fv;
+    V acc;
+    set_zero(acc);
     for (int e0 = start; e0 < end; e0 += 32) {
       const int e = e0 + lane;
       int c = 0;
@@ -75,74 +76,47 @@ spmm_csr_vec4_kernel(const int* __restrict__ row_ptr,
       for (int j = 0; j < n; ++j) {
         const int cj = __shfl_sync(kFullMask, c, j);
         const float wj = __shfl_sync(kFullMask, wv, j);
-        if (active) fma4(acc, wj, __ldg(x + (size_t)cj * f4 + f));
+        if (active) fma_to(acc, wj, __ldg(x + (size_t)cj * fv + f));
       }
     }
-    if (active) out[(size_t)row * f4 + f] = acc;
+    if (active) out[(size_t)row * fv + f] = acc;
   }
-}
-
-// Any width: one column a lane, the last 32-column group masked.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_csr_scalar_kernel(const int* __restrict__ row_ptr,
-                       const int* __restrict__ col,
-                       const float* __restrict__ w,
-                       const float* __restrict__ x,
-                       float* __restrict__ out,
-                       int n_rows, int n_feat) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const int start = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  for (int base = 0; base < n_feat; base += 32) {
-    const int f = base + lane;
-    const bool active = f < n_feat;
-    float acc = 0.f;
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int c = 0;
-      float wv = 0.f;
-      if (e < end) {
-        c = __ldg(col + e);
-        wv = __ldg(w + e);
-      }
-      const int n = min(32, end - e0);
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int cj = __shfl_sync(kFullMask, c, j);
-        const float wj = __shfl_sync(kFullMask, wv, j);
-        if (active) acc = fmaf(wj, __ldg(x + (size_t)cj * n_feat + f), acc);
-      }
-    }
-    if (active) out[(size_t)row * n_feat + f] = acc;
-  }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
 
-// Launches K1 on `stream` (a cudaStream_t). x is [n_rows, n_feat] and out is
-// [n_rows, n_feat], both fp32 row-major; row_ptr has n_rows + 1 entries.
-// Returns the cudaError_t of the launch (0 on success).
+// Launches K1 on `stream` (a cudaStream_t). x and out are [n_rows, n_feat]
+// fp32 row-major; row_ptr has n_rows + 1 entries. rows != 0: the row-a-warp
+// kernel runs and the schedule is not read. Otherwise erow, chunk_start and
+// piece_start (n_chunks + 1 entries each) and cross (n_cross triples) are the
+// schedule of this row_ptr and partial is fp32 scratch of
+// [piece_start[n_chunks], n_feat], needed only when n_cross > 0. Adds the
+// number of CUDA kernels started to *n_kernels and returns the cudaError_t of
+// the first launch that failed (0 on success).
 extern "C" int spmm_csr_f32(const int* row_ptr, const int* col, const float* w,
-                            const float* x, float* out, int n_rows,
-                            int n_feat, void* stream) {
+                            const float* x, float* out, int n_rows, int n_feat,
+                            const int* erow, const int* chunk_start,
+                            const int* piece_start, int n_chunks,
+                            const int* cross, int n_cross, float* partial,
+                            int rows, int* n_kernels, void* stream) {
   if (n_rows <= 0 || n_feat <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!rows) {
+    return spmm_chunk::launch<false>(row_ptr, col, w, x, out, n_rows, n_feat,
+                                     erow, chunk_start, piece_start, n_chunks,
+                                     cross, n_cross, partial, s, n_kernels);
+  }
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (n_feat % 4 == 0 && aligned16(x) && aligned16(out)) {
-    spmm_csr_vec4_kernel<<<grid, block, 0, s>>>(
+    spmm_csr_rows_kernel<float4><<<grid, block, 0, s>>>(
         row_ptr, col, w, reinterpret_cast<const float4*>(x),
         reinterpret_cast<float4*>(out), n_rows, n_feat / 4);
   } else {
-    spmm_csr_scalar_kernel<<<grid, block, 0, s>>>(row_ptr, col, w, x, out,
-                                                  n_rows, n_feat);
+    spmm_csr_rows_kernel<float><<<grid, block, 0, s>>>(row_ptr, col, w, x, out,
+                                                       n_rows, n_feat);
   }
+  ++*n_kernels;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,10 @@ tensors. ``device_layout.prepare_spmm_device`` builds the structure on the
 graph's own device, optionally grouped by source panel; both store it under
 the same ``spmm_fw_*``/``spmm_bw_*`` names, and ``meta["spmm_panel_rows"]``
 tells the dispatchers which it is: 0, one CSR per direction (K1, K3
-single-shot); above 0, a panel-major CSR (K2, K3 accumulating).
+single-shot); above 0, a panel-major CSR (K2, K3 accumulating). Both also
+store the schedule that cuts each structure's edges into one warp's chunks
+(``spmm_*_<field>`` for each field of ``SpmmSchedule``), which the
+dispatcher hands to K1 and K2.
 ``gather_kernels`` holds the gather probes K4-K6, which no model runs: the
 script ``cogdl_tpu_torch.scripts.microbench_gather`` drives them.
 """
@@ -20,6 +23,10 @@ from typing import Optional
 import torch
 
 from .device_layout import (  # noqa: F401  (public kernel-tier re-exports)
+    CHUNK_EDGES,
+    SCHEDULE_KEYS,
+    SpmmSchedule,
+    build_spmm_schedule,
     build_spmm_structure,
     default_panel_rows,
     prepare_spmm_device,
@@ -43,6 +50,7 @@ from .segment_kernels import (  # noqa: F401  (public kernel-tier re-exports)
     spmm_csr,
     spmm_csr_accum,
     spmm_csr_accum_reference,
+    spmm_csr_chunked_reference,
     spmm_csr_reference,
 )
 
@@ -66,7 +74,9 @@ def prepare_spmm(graph):
     ``cogdl_tpu/ops/pallas/__init__.py:55-57`` maps them). int32 indices,
     built from the first ``num_edges`` edges only: pad edges all sit in the
     sink row and would give one warp up to a quarter of E serial
-    iterations. Call after normalisation: the structure snapshots
+    iterations. Beside each direction goes its :class:`SpmmSchedule`
+    (``spmm_*_<field>``). Call after
+    normalisation: the structure snapshots
     ``edge_weight``. Runs on the graph's device."""
     E, n = graph.num_edges, graph.n_pad
     if E >= 2 ** 31:
@@ -88,7 +98,22 @@ def prepare_spmm(graph):
         "spmm_bw_w": w[order].contiguous(),
         "spmm_bw_orig": order.int().contiguous(),
     })
+    for d, erow in (("fw", row), ("bw", col[order])):
+        sched = build_spmm_schedule(extras[f"spmm_{d}_ptr"],
+                                    erow=erow.int())
+        extras.update({f"spmm_{d}_{k}": t
+                       for k, t in sched._asdict().items()})
     return graph.replace(extras=extras).with_meta(spmm_panel_rows=0)
+
+
+def stored_schedule(extras, direction: str) -> Optional[SpmmSchedule]:
+    """The schedule stored in ``extras`` for ``"fw"`` or ``"bw"``, None for
+    a structure that has none (the wrappers then build it from the row
+    pointers on every call)."""
+    keys = [f"spmm_{direction}_{k}" for k in SCHEDULE_KEYS]
+    if not all(k in extras for k in keys):
+        return None
+    return SpmmSchedule(*(extras[k] for k in keys))
 
 
 def _panel_route(graph) -> bool:
@@ -122,7 +147,9 @@ def maybe_cuda_spmm(graph, x: torch.Tensor) -> Optional[torch.Tensor]:
     if x.ndim != 2:
         raise ValueError(f"spmm takes [n_pad, F] features, got {tuple(x.shape)}")
     fn = SpMMPanelFunction if _panel_route(graph) else SpMMFunction
-    return fn.apply(x, *(extras[k] for k in _KEYS))
+    return fn.apply(x, *(extras[k] for k in _KEYS),
+                    stored_schedule(extras, "fw"),
+                    stored_schedule(extras, "bw"))
 
 
 _GAT_KEYS = ("spmm_fw_ptr", "spmm_fw_col", "spmm_fw_orig",

@@ -14,6 +14,22 @@ added in place to a running output, ``acc[r] += Σ …``, one call per source
 panel of the panel-major CSR that ``device_layout`` builds; rows without an
 edge in the panel keep their values.
 
+K1 and K2 are one design (``csrc/spmm_chunk.cuh``). Both are bound by the
+bytes of their gathers, and what a kernel loses on top of them on a
+power-law graph is balance: rows run from no edge to hundreds of thousands.
+So the work is cut by edges: a :class:`SpmmSchedule`, built once with the
+structure, cuts the flat edge array into chunks of about ``CHUNK_EDGES``
+edges, one warp takes one chunk with several gathered rows in flight, a row
+inside a chunk is written by its warp, and a row longer than a chunk leaves
+one partial sum a chunk in a scratch table of just those pieces, which a
+second kernel adds in chunk order: no atomics, one writer per element. One call of ``spmm_csr`` or
+``spmm_csr_accum`` therefore starts one or two CUDA kernels (one more per
+further 256 columns, 64 where ``F % 4 != 0``); the launch counters count
+calls. Rows of ``F`` floats that 4 does not divide (the 47 classes) take one
+pass too, two columns a lane.
+:func:`spmm_csr_chunked_reference` computes the same cut in plain PyTorch
+for the CPU tests.
+
 K3 (``cogdl_tpu_torch/csrc/gat_fused.cu``) replaces ``_gat_pass``
 (``segment_kernels.py:975``, kernel body ``_make_gat_pass_kernel``): the
 fused GAT scores + softmax + aggregation pass in three modes, ``fwd`` and
@@ -27,8 +43,8 @@ designs do about that.
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first use,
 one ``nvcc`` a source, all started together, and linked into one library in
 ``build/cogdl_tpu_torch/`` beside the package, keyed by a hash of the
-sources and flags, bound through ``ctypes`` (plain C interface, no PyTorch
-headers, so a build takes seconds).
+sources, their shared headers and the flags, bound through ``ctypes`` (plain
+C interface, no PyTorch headers, so a build takes seconds).
 
 ``spmm_csr``, ``spmm_csr_accum`` and ``gat_pass`` take their plain versions
 only for CPU tensors. A CUDA tensor launches the kernel or raises: there is
@@ -49,6 +65,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from .device_layout import SpmmSchedule, build_spmm_schedule
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -78,13 +96,15 @@ def _find_nvcc() -> str:
 
 def build() -> Tuple[Path, str, float]:
     """Compile the kernel library unless a build of these exact sources and
-    flags exists: one ``nvcc -c`` per source, all running at once, then one
-    link. Returns ``(path, nvcc stderr, seconds)``; the log holds
-    ``-Xptxas -v``'s register and spill lines and is empty when the library
-    was already built. Raises with nvcc's stderr if a step fails."""
+    flags exists: one ``nvcc -c`` per
+    source, all running at once, then one link. Returns ``(path, nvcc
+    stderr, seconds)``; the log holds ``-Xptxas -v``'s register and spill
+    lines and is empty when the library was already built. Raises with
+    nvcc's stderr if a step fails."""
     srcs = sources()
     digest = hashlib.sha256(
-        b"".join(p.name.encode() + p.read_bytes() for p in srcs)
+        b"".join(p.name.encode() + p.read_bytes()
+                 for p in (*srcs, *sorted(CSRC.glob("*.cuh"))))
         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libcogdl_kernels_{digest}.so"
     if lib.exists():
@@ -124,13 +144,19 @@ def build() -> Tuple[Path, str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
+    """Build (if needed) and load the kernel library, once per process."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.spmm_csr_f32.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # row_ptr, col, w, x, out | n_rows, n_feat | erow, chunk_start,
+    # piece_start | n_chunks | cross | n_cross | partial | K1 only: rows (1:
+    # the row-a-warp kernel) | n_kernels, a host int | stream
+    schedule = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_void_p]
+    tail = [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + schedule
+    lib.spmm_csr_f32.argtypes = head + [ctypes.c_int] + tail
     lib.spmm_csr_f32.restype = ctypes.c_int
-    lib.spmm_csr_accum_f32.argtypes = lib.spmm_csr_f32.argtypes
+    lib.spmm_csr_accum_f32.argtypes = head + tail
     lib.spmm_csr_accum_f32.restype = ctypes.c_int
     lib.gat_pass_f32.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 13
@@ -158,13 +184,23 @@ def spmm_csr_reference(row_ptr: torch.Tensor, col: torch.Tensor,
     return x.new_zeros((n, x.shape[1])).index_add(0, row, msg)
 
 
-def _check_launch_args(row_ptr, col, w, x, acc=None, fn="spmm_csr"):
+def _check_launch_args(row_ptr, col, w, x, acc=None, schedule=None,
+                       fn="spmm_csr"):
     dev = x.device
     tensors = [("row_ptr", row_ptr, torch.int32, 1),
                ("col", col, torch.int32, 1), ("w", w, torch.float32, 1),
                ("x", x, torch.float32, 2)]
     if acc is not None:
         tensors.append(("acc", acc, torch.float32, 2))
+    if schedule is not None:
+        tensors += [("schedule.erow", schedule.erow, torch.int32, 1),
+                    ("schedule.chunk_start", schedule.chunk_start,
+                     torch.int32, 1),
+                    ("schedule.cross", schedule.cross, torch.int32, 2),
+                    ("schedule.piece_start", schedule.piece_start,
+                     torch.int32, 1),
+                    ("schedule.piece_row", schedule.piece_row,
+                     torch.int32, 1)]
     for name, t, dtype, ndim in tensors:
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, x on {dev}")
@@ -187,6 +223,25 @@ def _check_launch_args(row_ptr, col, w, x, acc=None, fn="spmm_csr"):
                          f"{tuple(acc.shape)}")
     if max(x.numel(), col.numel()) >= 2 ** 31:
         raise ValueError(f"{fn}: int32 offsets overflow at this size")
+    if schedule is not None:
+        if schedule.erow.numel() != col.numel():
+            raise ValueError(f"{fn}: schedule.erow has "
+                             f"{schedule.erow.numel()} entries, col "
+                             f"{col.numel()}")
+        if schedule.chunk_start.numel() < 1 or schedule.cross.shape[1] != 3:
+            raise ValueError(
+                f"{fn}: schedule.chunk_start needs n_chunks + 1 entries and "
+                f"schedule.cross (row, first, last) triples, got shapes "
+                f"{tuple(schedule.chunk_start.shape)} and "
+                f"{tuple(schedule.cross.shape)}")
+        if schedule.piece_start.shape != schedule.chunk_start.shape:
+            raise ValueError(
+                f"{fn}: schedule.piece_start must be shaped as "
+                f"schedule.chunk_start, {tuple(schedule.chunk_start.shape)}, "
+                f"got {tuple(schedule.piece_start.shape)}")
+        if schedule.piece_row.numel() * x.shape[1] >= 2 ** 31:
+            raise ValueError(f"{fn}: the scratch of one partial row a piece "
+                             "overflows int32 offsets at this size")
 
 
 # every wrapper that counts its launches; the modules of the other kernels
@@ -201,42 +256,101 @@ def reset_launch_counts() -> None:
         fn.launches_by.clear()
 
 
+def _own_schedule(row_ptr: torch.Tensor, col: torch.Tensor) -> SpmmSchedule:
+    """The schedule of ``row_ptr`` for a caller that passes none, its
+    ``erow`` as long as the flat ``col``."""
+    sched = build_spmm_schedule(row_ptr)
+    pad = col.numel() - sched.erow.numel()
+    if pad > 0:
+        sched = sched._replace(erow=torch.cat([sched.erow,
+                                               sched.erow.new_zeros(pad)]))
+    return sched
+
+
+def _schedule_args(schedule: SpmmSchedule, F: int, device):
+    """The schedule as the C functions take it: ``erow, chunk_start,
+    piece_start, n_chunks, cross, n_cross, partial``, and the scratch tensor
+    to keep alive (one partial row a piece of a cut row, only when a row is
+    cut)."""
+    n_chunks = schedule.chunk_start.numel() - 1
+    n_cross = schedule.cross.shape[0]
+    partial = (torch.empty((schedule.piece_row.numel(), F),
+                           dtype=torch.float32, device=device)
+               if n_cross else None)
+    return (schedule.erow.data_ptr(), schedule.chunk_start.data_ptr(),
+            schedule.piece_start.data_ptr(), n_chunks,
+            schedule.cross.data_ptr() if n_cross else None, n_cross,
+            None if partial is None else partial.data_ptr()), partial
+
+
+K1_KERNELS = ("rows", "chunks")
+
+
 def spmm_csr(row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
-             x: torch.Tensor, structure: str = "csr") -> torch.Tensor:
+             x: torch.Tensor, structure: str = "csr",
+             schedule: Optional[SpmmSchedule] = None,
+             kernel: Optional[str] = None) -> torch.Tensor:
     """``out[r] = Σ_{e in [row_ptr[r], row_ptr[r+1])} w[e] · x[col[e]]``.
 
     ``row_ptr``/``col`` int32, ``w``/``x`` float32, all contiguous, ``x``
     ``[n, F]`` with ``n = row_ptr.numel() - 1``. CUDA tensors run K1 on the
     current stream; CPU tensors run :func:`spmm_csr_reference`.
 
-    Each launch adds one to ``spmm_csr.launches`` and to
-    ``spmm_csr.launches_by[(structure, F)]``; ``structure`` names what the
-    caller passes, ``"csr"`` (A) or ``"csc"`` (Aᵀ), and only keys that
-    count."""
+    ``schedule``: the :class:`SpmmSchedule` of ``row_ptr`` that
+    ``prepare_spmm`` or ``prepare_spmm_device`` stored; the call then does
+    no set-up work. Without one it is built from ``row_ptr`` on the device,
+    which costs a few torch ops and two host synchronisations a call.
+    ``kernel``: ``"chunks"``, the edge-chunk kernel, or ``"rows"``, one warp
+    a row; None takes ``"rows"`` for a structure without a row longer than a
+    chunk (``schedule.cross`` is empty) and ``"chunks"`` otherwise.
+
+    Each call adds one to ``spmm_csr.launches`` and to
+    ``spmm_csr.launches_by[(structure, F)]``, however many CUDA kernels it
+    starts (``spmm_csr.cuda_kernels`` holds that number of the last call,
+    ``spmm_csr.kernel`` the name of the kernel it ran); ``structure`` names
+    what the caller passes, ``"csr"`` (A) or ``"csc"`` (Aᵀ), and only keys
+    that count."""
+    if kernel not in (None, *K1_KERNELS):
+        raise ValueError(f"spmm_csr: kernel must be one of {K1_KERNELS} or "
+                         f"None, got {kernel!r}")
     if not x.is_cuda:
         return spmm_csr_reference(row_ptr, col, w, x)
-    _check_launch_args(row_ptr, col, w, x)
+    if schedule is None and kernel != "rows":
+        _check_launch_args(row_ptr, col, w, x)
+        schedule = _own_schedule(row_ptr, col)
+    _check_launch_args(row_ptr, col, w, x, schedule=schedule)
     n, F = x.shape
     out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     if n == 0 or F == 0:
         return out
+    if kernel is None:
+        kernel = "chunks" if schedule.cross.shape[0] else "rows"
     lib = load_library()
+    # the row-a-warp kernel reads no schedule
+    sched_args, partial = ((None, None, None, 0, None, 0, None), None) if (
+        schedule is None) else _schedule_args(schedule, F, x.device)
+    started = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spmm_csr_f32(row_ptr.data_ptr(), col.data_ptr(),
                                w.data_ptr(), x.data_ptr(), out.data_ptr(),
-                               n, F, stream)
+                               n, F, *sched_args, int(kernel == "rows"),
+                               ctypes.byref(started), stream)
     if err != 0:
         raise RuntimeError(
             f"spmm_csr kernel launch failed: CUDA error {err} "
             f"({lib.spmm_csr_error_string(err).decode()})")
     spmm_csr.launches += 1
     spmm_csr.launches_by[(structure, F)] += 1
+    spmm_csr.cuda_kernels = started.value
+    spmm_csr.kernel = kernel
     return out
 
 
 spmm_csr.launches = 0
 spmm_csr.launches_by = collections.Counter()
+spmm_csr.cuda_kernels = 0
+spmm_csr.kernel = None
 
 
 class SpMMFunction(torch.autograd.Function):
@@ -246,17 +360,21 @@ class SpMMFunction(torch.autograd.Function):
     package's XLA route differentiates the weights.
 
     Inputs: ``x``, the CSR of A (``fw_ptr``, ``fw_col``, ``fw_w``) and the
-    CSR of Aᵀ (``bw_ptr``, ``bw_col``, ``bw_w``); ``dw`` is the gradient of
+    CSR of Aᵀ (``bw_ptr``, ``bw_col``, ``bw_w``), then optionally each
+    direction's prepared :class:`SpmmSchedule`; ``dw`` is the gradient of
     ``fw_w``. ``bw_w`` holds the same values in transposed order and is
     treated as a constant."""
 
     @staticmethod
-    def forward(ctx, x, fw_ptr, fw_col, fw_w, bw_ptr, bw_col, bw_w):
+    def forward(ctx, x, fw_ptr, fw_col, fw_w, bw_ptr, bw_col, bw_w,
+                fw_schedule=None, bw_schedule=None):
         x = x.contiguous()
         # only the dw SDDMM reads x: keep it alive only when dw is asked for
         ctx.save_for_backward(x if ctx.needs_input_grad[3] else None,
                               fw_ptr, fw_col, bw_ptr, bw_col, bw_w)
-        return spmm_csr(fw_ptr, fw_col, fw_w, x, structure="csr")
+        ctx.bw_schedule = bw_schedule
+        return spmm_csr(fw_ptr, fw_col, fw_w, x, structure="csr",
+                        schedule=fw_schedule)
 
     @staticmethod
     def backward(ctx, g):
@@ -264,7 +382,8 @@ class SpMMFunction(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = spmm_csr(bw_ptr, bw_col, bw_w, g, structure="csc")
+            dx = spmm_csr(bw_ptr, bw_col, bw_w, g, structure="csc",
+                          schedule=ctx.bw_schedule)
         if ctx.needs_input_grad[3]:
             n = fw_ptr.numel() - 1
             row = torch.repeat_interleave(
@@ -272,7 +391,7 @@ class SpMMFunction(torch.autograd.Function):
                 (fw_ptr[1:] - fw_ptr[:-1]).long())
             dw = (g.index_select(0, row)
                   * x.index_select(0, fw_col[: row.numel()])).sum(-1)
-        return dx, None, None, dw, None, None, None
+        return dx, None, None, dw, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +429,67 @@ def spmm_csr_accum_reference(acc: torch.Tensor, row_ptr: torch.Tensor,
     return acc
 
 
+def spmm_csr_chunked_reference(row_ptr: torch.Tensor, col: torch.Tensor,
+                               w: torch.Tensor, x: torch.Tensor,
+                               schedule: SpmmSchedule,
+                               acc: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """K1 (``acc`` None) or K2 (``acc`` given, added to in place) in plain
+    PyTorch *the way the kernels cut it*, for the CPU tests of the schedule:
+    chunk by chunk, a row inside a chunk written (K1) or added (K2) by that
+    chunk, the piece of a row that began earlier stored in scratch slot
+    ``piece_start[c]``, of a row that goes on in slot ``piece_start[c + 1] −
+    1``, and each row of ``schedule.cross`` summed from its run of slots in
+    order. A Python loop over chunks: small structures only. Raises when a
+    slot is read that no chunk wrote, written twice, written and never
+    read, or holds another row than ``piece_row`` says, i.e. when the
+    schedule does not fit ``row_ptr``."""
+    out = x.new_zeros(x.shape) if acc is None else acc
+    starts = schedule.chunk_start.tolist()
+    slots = schedule.piece_start.tolist()
+    piece_row = schedule.piece_row.tolist()
+    erow = schedule.erow.tolist()
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    partial = {}
+    for c, (s, e) in enumerate(zip(starts[:-1], starts[1:])):
+        if s >= e:
+            continue
+        head_open = s > lo and erow[s - 1] == erow[s]
+        tail_open = e < hi and erow[e] == erow[e - 1]
+        bounds = [s] + [i for i in range(s + 1, e)
+                        if erow[i] != erow[i - 1]] + [e]
+        for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+            piece = (x[col[a:b].long()] * w[a:b, None]).sum(0)
+            open_left, open_right = i == 0 and head_open, b == e and tail_open
+            if open_left or open_right:
+                slot = slots[c] if open_left else slots[c + 1] - 1
+                if slot in partial or piece_row[slot] != erow[a]:
+                    raise AssertionError(
+                        f"chunk {c} puts a piece of row {erow[a]} into slot "
+                        f"{slot}, which is taken or belongs to another row")
+                partial[slot] = piece
+            elif acc is None:
+                out[erow[a]] = piece
+            else:
+                out[erow[a]] += piece
+    for row, first, last in schedule.cross.tolist():
+        if row < 0:
+            continue
+        slot = slots[first + 1] - 1
+        total = partial.pop(slot).clone()
+        for i in range(1, last - first + 1):
+            total += partial.pop(slot + i)
+        out[row] += total
+    if partial:
+        raise AssertionError(f"partial sums {sorted(partial)} were written "
+                             "and never added to a row")
+    return out
+
+
 def spmm_csr_accum(acc: torch.Tensor, row_ptr: torch.Tensor,
                    col: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-                   structure: str = "csr") -> torch.Tensor:
+                   structure: str = "csr",
+                   schedule: Optional[SpmmSchedule] = None) -> torch.Tensor:
     """``acc[r] += Σ_{e in [row_ptr[r], row_ptr[r+1])} w[e] · x[col[e]]`` in
     place; returns ``acc``. A row whose range is empty keeps its values bit
     for bit.
@@ -323,33 +500,47 @@ def spmm_csr_accum(acc: torch.Tensor, row_ptr: torch.Tensor,
     1``, contiguous, and must not share memory. CUDA tensors run K2 on the
     current stream; CPU tensors run :func:`spmm_csr_accum_reference`.
 
-    Each launch adds one to ``spmm_csr_accum.launches`` and to
-    ``spmm_csr_accum.launches_by[(structure, F)]``; ``structure`` names what
-    the caller passes, ``"csr"`` (A) or ``"csc"`` (Aᵀ), and only keys that
-    count."""
+    ``schedule``: the panel's :class:`SpmmSchedule`
+    (``SpmmSchedule.panel(p)`` of what ``prepare_spmm_device`` stored); the
+    call then does no set-up work. Without one it is built from ``row_ptr``
+    on the device on every call.
+
+    Each call adds one to ``spmm_csr_accum.launches`` and to
+    ``spmm_csr_accum.launches_by[(structure, F)]``, however many CUDA
+    kernels it starts (``spmm_csr_accum.cuda_kernels`` holds that number of
+    the last call); ``structure`` names what the caller passes, ``"csr"`` (A) or ``"csc"``
+    (Aᵀ), and only keys that count."""
     if not x.is_cuda:
         return spmm_csr_accum_reference(acc, row_ptr, col, w, x)
-    _check_launch_args(row_ptr, col, w, x, acc, fn="spmm_csr_accum")
+    if schedule is None:
+        _check_launch_args(row_ptr, col, w, x, acc, fn="spmm_csr_accum")
+        schedule = _own_schedule(row_ptr, col)
+    _check_launch_args(row_ptr, col, w, x, acc, schedule, "spmm_csr_accum")
     n, F = x.shape
     if n == 0 or F == 0:
         return acc
     lib = load_library()
+    sched_args, partial = _schedule_args(schedule, F, x.device)
+    started = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spmm_csr_accum_f32(row_ptr.data_ptr(), col.data_ptr(),
                                      w.data_ptr(), x.data_ptr(),
-                                     acc.data_ptr(), n, F, stream)
+                                     acc.data_ptr(), n, F, *sched_args,
+                                     ctypes.byref(started), stream)
     if err != 0:
         raise RuntimeError(
             f"spmm_csr_accum kernel launch failed: CUDA error {err} "
             f"({lib.spmm_csr_accum_error_string(err).decode()})")
     spmm_csr_accum.launches += 1
     spmm_csr_accum.launches_by[(structure, F)] += 1
+    spmm_csr_accum.cuda_kernels = started.value
     return acc
 
 
 spmm_csr_accum.launches = 0
 spmm_csr_accum.launches_by = collections.Counter()
+spmm_csr_accum.cuda_kernels = 0
 
 
 class SpMMPanelFunction(torch.autograd.Function):
@@ -360,17 +551,20 @@ class SpMMPanelFunction(torch.autograd.Function):
     — only when asked for — as the plain SDDMM, as :class:`SpMMFunction`.
 
     Inputs as :class:`SpMMFunction`, with ``fw_ptr``/``bw_ptr``
-    ``[n_panels, n + 1]``; ``dw`` is in the flat (panel-major) order of
-    ``fw_w``."""
+    ``[n_panels, n + 1]`` and the schedules those of the panel structures;
+    ``dw`` is in the flat (panel-major) order of ``fw_w``."""
 
     @staticmethod
-    def forward(ctx, x, fw_ptr, fw_col, fw_w, bw_ptr, bw_col, bw_w):
+    def forward(ctx, x, fw_ptr, fw_col, fw_w, bw_ptr, bw_col, bw_w,
+                fw_schedule=None, bw_schedule=None):
         x = x.contiguous()
         ctx.save_for_backward(x if ctx.needs_input_grad[3] else None,
                               fw_ptr, fw_col, bw_ptr, bw_col, bw_w)
+        ctx.bw_schedule = bw_schedule
         out = torch.zeros_like(x)
-        for ptr in fw_ptr:
-            spmm_csr_accum(out, ptr, fw_col, fw_w, x, structure="csr")
+        for p, ptr in enumerate(fw_ptr):
+            spmm_csr_accum(out, ptr, fw_col, fw_w, x, structure="csr",
+                           schedule=fw_schedule and fw_schedule.panel(p))
         return out
 
     @staticmethod
@@ -380,13 +574,15 @@ class SpMMPanelFunction(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = torch.zeros_like(g)
-            for ptr in bw_ptr:
-                spmm_csr_accum(dx, ptr, bw_col, bw_w, g, structure="csc")
+            sched = ctx.bw_schedule
+            for p, ptr in enumerate(bw_ptr):
+                spmm_csr_accum(dx, ptr, bw_col, bw_w, g, structure="csc",
+                               schedule=sched and sched.panel(p))
         if ctx.needs_input_grad[3]:
             row = torch.cat([panel_edges(ptr)[1] for ptr in fw_ptr])
             dw = (g.index_select(0, row)
                   * x.index_select(0, fw_col.long())).sum(-1)
-        return dx, None, None, dw, None, None, None
+        return dx, None, None, dw, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,8 @@ def test_blocked_builds_the_panel_structure_on_the_device(capsys, model):
 
 
 def test_blocked_sizes_its_panels_by_default(capsys):
-    # 2048 rows of 512 bytes fit the default budget: no panels, K1's route
-    assert _run(capsys, "--blocked")["panel_rows"] == 0
+    # no height named: the structure K1/K2 read gets two panels, K2's route
+    assert _run(capsys, "--blocked")["panel_rows"] == 1024
 
 
 def test_out_file_holds_the_same_line(capsys, tmp_path):

@@ -24,11 +24,108 @@ def test_kernel_check_phase_rehearsal():
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for e in entries:
-        assert keys <= set(e)
+        assert keys | SCHEDULE_KEYS | {"kernel", "kernel_ran", "ms_rows",
+                                       "ms_chunks"} <= set(e)
+        # no kernel runs on the CPU: what the wrapper ran last, if anything
+        assert e["kernel_ran"] in (None, "rows", "chunks")
         assert os.path.exists(os.path.join(REPO, e["source"]))
         path, line = e["replaces"].split(":")
         src = open(os.path.join(REPO, path)).read().splitlines()
         assert src[int(line) - 1].startswith("def sorted_segment_matmul(")
+        assert e["chunk_edges"] == 128 and e["chunks"] >= e["nnz"] / 256
+        assert e["ms_over_library"] == pytest.approx(e["ms"] / e["library_ms"])
+        assert e["share_of_bound"] == pytest.approx(e["bound_ms"] / e["ms"])
+        # the wrapper's choice: the chunk kernel where a row is cut
+        assert e["kernel"] == ("chunks" if e["cross_rows"] else "rows")
+        assert (e["max_row_nnz"] > 128) == (e["cross_rows"] > 0)
+
+
+# what every K1/K2 entry says of its schedule
+SCHEDULE_KEYS = {"chunk_edges", "chunks", "cross_rows", "scratch_rows",
+                 "cuda_kernels_per_call", "ms_over_library",
+                 "share_of_bound", "structure_s"}
+
+
+def test_adversarial_phase_rehearsal():
+    # one width, the one with two columns a lane
+    report = cs.phase_adversarial(CPU, feats=(47,))
+    assert list(report) == ["star", "mixed_rows", "no_edge",
+                            "middle_third_unnamed", "powerlaw"]
+    assert set(report.values()) == {0.0}   # the plain version on both sides
+
+
+def test_adversarial_structures_are_what_their_names_say():
+    t = 16
+    found = {n: rest for n, *rest in cs.adversarial_structures(CPU, chunk=t)}
+    row, col, n = found["star"]
+    assert row.unique().numel() == 1 and row.numel() == 20 * t + 7
+    row, _, _ = found["mixed_rows"]
+    lens = torch.bincount(row, minlength=14).tolist()
+    assert lens == [0, 0, t - 1, t, t + 1, 0, 2 * t, t, 0, 3, 2 * t + 5, 1,
+                    0, 0]
+    assert sum(lens[:8]) == 6 * t          # row 7 ends on a chunk boundary
+    assert found["no_edge"][0].numel() == 0
+    _, col, n = found["middle_third_unnamed"]
+    assert not ((col >= n // 3) & (col < 2 * (n // 3))).any()
+    assert (col < n // 3).any() and (col >= 2 * (n // 3)).any()
+    # built from the seed: the same lists every time
+    again = {n: rest for n, *rest in cs.adversarial_structures(CPU, chunk=t)}
+    assert all(torch.equal(found[k][1], again[k][1]) for k in found)
+
+
+def test_adversarial_phase_catches_a_kernel_that_disagrees(monkeypatch):
+    real = cs.sk.spmm_csr
+
+    def off_by_a_little(*a, **kw):
+        return real(*a, **kw) * 1.001
+
+    monkeypatch.setattr(cs.sk, "spmm_csr", off_by_a_little)
+    with pytest.raises(AssertionError, match="adversarial structure"):
+        cs.phase_adversarial(CPU, feats=(8,))
+
+
+def test_chunk_sweep_phase_rehearsal():
+    rows = cs.phase_chunk_sweep(CPU, num_nodes=300, iters=1)
+    assert [(r["structure"], r["F"], r["chunk_edges"]) for r in rows] == [
+        (s, f, t) for s in ("csr", "csc") for f in (128, 47)
+        for t in (32, 64, 128, 256)]
+    for r in rows:
+        assert r["err_over_tol"] == 0.0 and r["ms"] > 0
+        assert r["chunks"] >= r["cross_rows"] >= 0
+    # fewer edges a chunk: more chunks and more rows cut
+    csc = [r for r in rows if r["structure"] == "csc" and r["F"] == 47]
+    assert [r["chunks"] for r in csc] == sorted(
+        (r["chunks"] for r in csc), reverse=True)
+    assert csc[0]["cross_rows"] > csc[-1]["cross_rows"] > 0
+
+
+def test_schedule_stats_leave_the_padding_out():
+    ptr = torch.tensor([[0, 40, 40, 44], [44, 45, 46, 47]], dtype=torch.int32)
+    sched = cs.build_spmm_schedule(ptr, 16)
+    # panel 0: a row of 40 edges cut into 3 chunks and a row of 4; panel 1:
+    # one chunk, no row cut, padded to panel 0's sizes
+    assert sched.chunk_start.shape == (2, 4) and sched.cross.shape == (2, 1, 3)
+    assert cs.schedule_stats(sched) == (4, 1)
+    assert cs.schedule_stats(sched.panel(1)) == (1, 0)
+
+
+def test_tail_report_reads_the_ratios_off_the_entries():
+    def k1(structure, feat, ms, lib):
+        return {"name": f"spmm_csr[{structure},F={feat}]", "ms": ms,
+                "ms_over_library": ms / lib}
+
+    entries = [k1("csr", 128, 0.2, 0.3), k1("csc", 128, 0.3, 0.4),
+               k1("csr", 47, 0.1, 0.2), k1("csc", 47, 0.2, 0.25),
+               {"name": "spmm_csr_accum[F=128]", "ms_over_library": 0.3},
+               {"name": "spmm_csr_accum[F=47]", "ms_over_library": 0.5},
+               {"name": "gat_pass[fwd,H=8,D=16]"}]
+    report = cs.tail_report(entries)
+    assert report["F=128"] == {
+        "k1_csc_over_csr": pytest.approx(1.5),
+        "k1_csr_over_library": pytest.approx(2 / 3),
+        "k1_csc_over_library": pytest.approx(0.75),
+        "k2_sweep_over_library": 0.3}
+    assert report["F=47"]["k1_csc_over_csr"] == pytest.approx(2.0)
 
 
 def test_main_path_phase_rehearsal():
@@ -148,11 +245,20 @@ def test_panel_parity_phase_rehearsal():
 
 def test_panel_sweep_phase_rehearsal():
     rows = cs.phase_panel_sweep(CPU, nodes=2000, avg_degree=10,
-                                panels=(1, 2, 4), steps=1)
+                                panels=(1, 2, 4), steps=1, split_at=4)
     assert [(r["panels"], r["kernel"]) for r in rows] == [
         (1, "K1"), (2, "K2"), (4, "K2")]
     assert rows[0]["panel_rows"] == 0 and rows[2]["panel_rows"] == 512
     assert all(r["step_ms_no_cache"] > 0 for r in rows)
+    # what a panel's time is made of, at the panel count asked for only
+    assert [("hub_split" in r) for r in rows] == [False, False, True]
+    split = rows[2]["hub_split"]
+    assert split["panel"] == 2 and split["rows"] == 2048
+    assert 0 < split["hub_row_nnz"] <= split["nnz"]
+    assert {f"{c},F={f},{k}_ms" for f in (128, 47) for c, k in (
+        ("panel", "rows"), ("panel", "chunks"),
+        ("panel_without_hub_row", "rows"), ("panel_without_hub_row", "chunks"),
+        ("rows_without_edges", "rows"))} <= set(split)
 
 
 def _replaces(entry, prefix):
@@ -181,6 +287,14 @@ def test_products_gcn_phase_rehearsal():
         assert e["source"] == "cogdl_tpu_torch/csrc/spmm_csr_accum.cu"
         assert e["sweep_ms"] == pytest.approx(e["ms"] * e["panels"])
         _replaces(e, "def sorted_segment_matmul_accum(")
+        assert SCHEDULE_KEYS | {"cuda_kernels_sweep"} <= set(e)
+        assert e["ms_over_library"] == pytest.approx(
+            e["sweep_ms"] / e["library_sweep_ms"])
+    # recorded beside them: K2's sweep at each chunk size
+    assert [(r["F"], r["chunk_edges"]) for r in info["chunk_sweep"]] == [
+        (f, t) for f in (128, 47) for t in (32, 64, 128, 256)]
+    assert all(r["sweep_ms"] > 0 and r["panels"] == 4
+               for r in info["chunk_sweep"])
 
 
 def test_products_gat_phase_rehearsal():

@@ -548,3 +548,262 @@ def test_graphsage_on_card_sum_goes_through_k1_and_mean_through_none(dev):
         assert all(math.isfinite(r["train_loss"]) for r in runs)
         assert spmm_csr.launches == want
         assert gat_pass.launches == spmm_csr_accum.launches == 0
+
+
+# -- K1 and K2 by edge chunks: the structures that sit on the schedule's edges
+
+import chip_smoke  # noqa: E402  (the adversarial structures; imports no jax)
+from cogdl_tpu_torch.ops.cuda.segment_kernels import (  # noqa: E402
+    K1_KERNELS,
+)
+from cogdl_tpu_torch.ops.cuda import (  # noqa: E402
+    CHUNK_EDGES,
+    SCHEDULE_KEYS,
+    SpmmSchedule,
+    build_spmm_schedule,
+    build_spmm_structure,
+)
+
+ADVERSARIAL = ("star", "mixed_rows", "no_edge", "middle_third_unnamed",
+               "powerlaw")
+
+
+def _adversarial(dev, name, direction, panel_rows=0):
+    """One adversarial structure of chip_smoke.py over CSR(A) (``fw``) or
+    CSR(Aᵀ), its weights from a seed, and its schedule."""
+    found = {n: rest for n, *rest in chip_smoke.adversarial_structures(dev)}
+    assert tuple(found) == ADVERSARIAL
+    row, col, n = found[name]
+    if direction == "bw":
+        row, col = col, row
+    w = torch.randn(row.numel(), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    st = build_spmm_structure(row, col, w, n, panel_rows)
+    return st, SpmmSchedule(*(st[k] for k in SCHEDULE_KEYS)), n
+
+
+def _within_terms(out, ref, scale):
+    """fp32, summation order only, against Σ|terms| as on the card run: a
+    star row sums thousands of terms that cancel."""
+    return chip_smoke.scaled_err(out, ref, scale) <= 1.0
+
+
+@pytest.mark.parametrize("feat", [128, 47, 100])
+@pytest.mark.parametrize("direction", ["fw", "bw"])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_k1_on_adversarial_structures(dev, name, direction, feat):
+    st, sched, n = _adversarial(dev, name, direction)
+    x = torch.randn(n, feat, device=dev)
+    args = (st["ptr"], st["col"], st["w"], x)
+    ref = spmm_csr_reference(*args)
+    scale = spmm_csr_reference(st["ptr"], st["col"], st["w"].abs(), x.abs())
+    out = spmm_csr(*args, schedule=sched)
+    torch.cuda.synchronize()
+    assert _within_terms(out, ref, scale)
+    for kernel in K1_KERNELS:
+        named = spmm_csr(*args, schedule=sched, kernel=kernel)
+        assert spmm_csr.kernel == kernel
+        assert _within_terms(named, ref, scale)
+        assert torch.equal(named, spmm_csr(*args, schedule=sched,
+                                           kernel=kernel))
+    # a second call, and the schedule the wrapper builds itself: the same bits
+    assert torch.equal(out, spmm_csr(*args, schedule=sched))
+    assert torch.equal(out, spmm_csr(*args))
+    # rows without an edge are written as zeros by both kernels
+    empty = st["ptr"][1:] == st["ptr"][:-1]
+    for kernel in K1_KERNELS:
+        # poison the allocator's next block: the output is torch.empty
+        del out
+        torch.full_like(x, float("nan"))
+        out = spmm_csr(*args, schedule=sched, kernel=kernel)
+        assert (out[empty] == 0).all()
+
+
+@pytest.mark.parametrize("feat", [128, 47, 100])
+@pytest.mark.parametrize("direction", ["fw", "bw"])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_k2_on_adversarial_structures(dev, name, direction, feat):
+    st, sched, n = _adversarial(dev, name, direction, panel_rows=n_third(dev))
+    assert st["ptr"].shape[0] == 3
+    x = torch.randn(n, feat, device=dev)
+    acc0 = torch.randn(n, feat, device=dev)
+    runs = []
+    for prepared in (True, True, False):
+        acc, ref, scale = acc0.clone(), acc0.clone(), acc0.abs()
+        for p, ptr in enumerate(st["ptr"]):
+            untouched = ptr[1:] == ptr[:-1]
+            before = acc[untouched].clone()
+            spmm_csr_accum(acc, ptr, st["col"], st["w"], x,
+                           schedule=sched.panel(p) if prepared else None)
+            assert torch.equal(acc[untouched], before)
+            spmm_csr_accum_reference(ref, ptr, st["col"], st["w"], x)
+            spmm_csr_accum_reference(scale, ptr, st["col"], st["w"].abs(),
+                                     x.abs())
+        torch.cuda.synchronize()
+        assert _within_terms(acc, ref, scale)
+        runs.append(acc)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+def n_third(dev):
+    """A panel height that cuts the adversarial structures into three."""
+    return chip_smoke.adversarial_structures(dev)[0][3] // 3
+
+
+def test_k1_chooses_its_kernel_by_the_longest_row(dev):
+    """No row longer than a chunk: one CUDA kernel, the row-a-warp one. A
+    star: the chunk kernel and the kernel that adds the cut row's pieces."""
+    for name, kernels in (("mixed_rows", 2), ("star", 2), ("no_edge", 1)):
+        st, sched, n = _adversarial(dev, name, "fw")
+        x = torch.randn(n, 8, device=dev)
+        spmm_csr(st["ptr"], st["col"], st["w"], x, schedule=sched)
+        assert spmm_csr.cuda_kernels == kernels
+        assert (sched.cross.shape[0] > 0) == (kernels == 2)
+    short, sched, n = _adversarial(dev, "powerlaw", "fw")
+    if sched.cross.shape[0] == 0:
+        spmm_csr(short["ptr"], short["col"], short["w"],
+                 torch.randn(n, 8, device=dev), schedule=sched)
+        assert spmm_csr.cuda_kernels == 1
+
+
+@pytest.mark.parametrize("feat,passes", [(128, 1), (47, 1), (33, 1), (8, 1),
+                                         (64, 1), (130, 3), (260, 2),
+                                         (520, 3)])
+def test_chunk_kernel_takes_wide_tables_in_passes(dev, feat, passes):
+    """One pass covers 64 elements a row at most (float4 where F % 4 == 0:
+    256 columns; else floats: 64 columns); K1 on a star starts one kernel a
+    pass and one for the cut row."""
+    st, sched, n = _adversarial(dev, "star", "fw")
+    x = torch.randn(n, feat, device=dev)
+    args = (st["ptr"], st["col"], st["w"], x)
+    out = spmm_csr(*args, schedule=sched, kernel="chunks")
+    assert spmm_csr.cuda_kernels == passes + 1
+    scale = spmm_csr_reference(st["ptr"], st["col"], st["w"].abs(), x.abs())
+    assert _within_terms(out, spmm_csr_reference(*args), scale)
+    acc = torch.ones(n, feat, device=dev)
+    spmm_csr_accum(acc, *args, schedule=sched)
+    assert spmm_csr_accum.cuda_kernels == passes + 1
+    assert _within_terms(acc - 1, spmm_csr_reference(*args), 1 + scale)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 256])
+def test_kernels_at_other_chunk_sizes(dev, chunk):
+    ex = _graph(dev).extras
+    ptr, col, w = (ex[f"spmm_bw_{k}"] for k in ("ptr", "col", "w"))
+    sched = build_spmm_schedule(ptr, chunk, ex["spmm_bw_erow"])
+    x = torch.randn(ptr.numel() - 1, 47, device=dev)
+    out = spmm_csr(ptr, col, w, x, "csc", schedule=sched, kernel="chunks")
+    torch.testing.assert_close(out, spmm_csr_reference(ptr, col, w, x),
+                               rtol=RTOL, atol=ATOL)
+    assert CHUNK_EDGES == 128
+
+
+def test_functions_on_a_star_match_plain_autograd(dev):
+    """The hub row in the forward, the hub column in the backward, through
+    SpMMFunction (K1) and SpMMPanelFunction (K2) with prepared schedules."""
+    for panel_rows in (0, n_third(dev)):
+        fw, fs, n = _adversarial(dev, "star", "fw", panel_rows)
+        fn = SpMMPanelFunction if panel_rows else SpMMFunction
+        x = torch.randn(n, 47, device=dev, requires_grad=True)
+        probe = torch.randn(n, 47, device=dev)
+        # the transpose holds the same weights in another order: rebuild them
+        # from the forward's so that both directions are one matrix
+        ptrs = fw["ptr"] if panel_rows else fw["ptr"][None]
+        row = torch.cat([torch.repeat_interleave(
+            torch.arange(n, device=dev), (p[1:] - p[:-1]).long())
+            for p in ptrs])
+        col = fw["col"].long()
+        t = build_spmm_structure(col, row, fw["w"], n, panel_rows)
+        ts = SpmmSchedule(*(t[k] for k in SCHEDULE_KEYS))
+        y = fn.apply(x, fw["ptr"], fw["col"], fw["w"], t["ptr"], t["col"],
+                     t["w"], fs, ts)
+        (dx,) = torch.autograd.grad((y * probe).sum(), x)
+        xr = x.detach().clone().requires_grad_(True)
+        yr = torch.zeros_like(xr).index_add(0, row,
+                                            xr[col] * fw["w"][:, None])
+        (dxr,) = torch.autograd.grad((yr * probe).sum(), xr)
+        xa, wa, pa = x.detach().abs(), fw["w"].abs(), probe.abs()
+        assert _within_terms(y, yr, torch.zeros_like(xa).index_add(
+            0, row, xa[col] * wa[:, None]))
+        assert _within_terms(dx, dxr, torch.zeros_like(xa).index_add(
+            0, col, pa[row] * wa[:, None]))
+
+
+def test_wrappers_refuse_a_schedule_of_another_structure(dev):
+    st, sched, n = _adversarial(dev, "star", "fw")
+    x = torch.randn(n, 8, device=dev)
+    args = (st["ptr"], st["col"], st["w"], x)
+    with pytest.raises(ValueError, match="schedule.erow has"):
+        spmm_csr(*args, schedule=sched._replace(erow=sched.erow[:-1]))
+    with pytest.raises(ValueError, match="schedule.cross is on"):
+        spmm_csr_accum(torch.zeros_like(x), *args,
+                       schedule=sched._replace(cross=sched.cross.cpu()))
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        spmm_csr(*args, schedule=sched, kernel="columns")
+
+
+# -- rows that start on no 16-byte boundary, and the compact scratch
+
+@pytest.mark.parametrize("feat", [1, 2, 3, 5, 33, 101, 125])
+@pytest.mark.parametrize("direction", ["fw", "bw"])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_chunk_kernel_at_widths_four_does_not_divide(dev, name, direction,
+                                                     feat):
+    """K1's and K2's chunk kernel at widths from one float up, one or two
+    columns a lane and more than one pass: within tolerance of the plain
+    versions, two calls the same bits, rows without an edge zero (K1) or
+    untouched (K2)."""
+    st, sched, n = _adversarial(dev, name, direction)
+    x = torch.randn(n, feat, device=dev)
+    args = (st["ptr"], st["col"], st["w"], x)
+    ref = spmm_csr_reference(*args)
+    scale = spmm_csr_reference(st["ptr"], st["col"], st["w"].abs(), x.abs())
+    torch.full_like(x, float("nan"))       # poison the next torch.empty
+    out = spmm_csr(*args, schedule=sched, kernel="chunks")
+    assert spmm_csr.kernel == "chunks"
+    assert _within_terms(out, ref, scale)
+    assert torch.equal(out, spmm_csr(*args, schedule=sched, kernel="chunks"))
+    empty = st["ptr"][1:] == st["ptr"][:-1]
+    assert (out[empty] == 0).all()
+    acc0 = torch.randn(n, feat, device=dev)
+    accs = [spmm_csr_accum(acc0.clone(), *args, schedule=sched)
+            for _ in range(2)]
+    assert _within_terms(accs[0], acc0 + ref, acc0.abs() + scale)
+    assert torch.equal(*accs)
+    assert torch.equal(accs[0][empty], acc0[empty])
+
+
+@pytest.mark.parametrize("feat", [128, 47])
+def test_scratch_is_written_only_inside_its_pieces(dev, feat):
+    """Many cut rows between short ones over three panels: the scratch has a
+    row for every piece and no other, so a slot computed wrongly shows as a
+    wrong sum here."""
+    t = CHUNK_EDGES
+    lens = torch.tensor(
+        [3, 2 * t + 1, 0, t + 1, 5, 7 * t, t, 1, 3 * t + 9] * 6, device=dev)
+    n = 3 * 64
+    row = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
+    col = torch.randint(0, n, (row.numel(),), device=dev)
+    w = torch.randn(row.numel(), device=dev)
+    x = torch.randn(n, feat, device=dev)
+    for panel_rows in (0, 64):
+        st = build_spmm_structure(row, col, w, n, panel_rows)
+        sched = SpmmSchedule(*(st[k] for k in SCHEDULE_KEYS))
+        slots = sched.piece_row.shape[-1]
+        assert slots == int(sched.piece_start[..., -1].max())
+        # at most one piece a chunk and one more a cut row
+        assert slots <= (sched.chunk_start.shape[-1] - 1
+                         + sched.cross.shape[-2])
+        ptrs = st["ptr"] if panel_rows else st["ptr"][None]
+        acc, ref, scale = (torch.zeros_like(x) for _ in range(3))
+        for p, ptr in enumerate(ptrs):
+            spmm_csr_accum(acc, ptr, st["col"], st["w"], x,
+                           schedule=sched.panel(p) if panel_rows else sched)
+            spmm_csr_accum_reference(ref, ptr, st["col"], st["w"], x)
+            spmm_csr_accum_reference(scale, ptr, st["col"], st["w"].abs(),
+                                     x.abs())
+        assert _within_terms(acc, ref, scale)
+        if not panel_rows:
+            out = spmm_csr(st["ptr"], st["col"], st["w"], x, schedule=sched)
+            assert spmm_csr.kernel == "chunks"
+            assert _within_terms(out, ref, scale)

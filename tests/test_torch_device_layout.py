@@ -588,3 +588,322 @@ def test_forward_and_backward_passes_draw_the_same_mask(gat_setup):
                                                          keeps["fwd"])}
     for r, c, k in zip(grp, nbr, keeps["dsrc"]):
         assert fwd[(int(c), int(r))] == tuple(k)
+
+
+# -- (6) the chunk schedule of K1/K2 and the plain version cut the same way ---
+
+import chip_smoke  # noqa: E402  (the adversarial structures of the card run)
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph  # noqa: E402
+from cogdl_tpu_torch.ops.cuda import (  # noqa: E402
+    SCHEDULE_KEYS,
+    SpmmSchedule,
+    build_spmm_schedule,
+    spmm_csr_chunked_reference,
+    stored_schedule,
+)
+from cogdl_tpu_torch.ops.cuda.device_layout import SPMM_PANELS  # noqa: E402
+from cogdl_tpu_torch.ops.cuda.segment_kernels import (  # noqa: E402
+    K1_KERNELS,
+    SpMMFunction,
+    _check_launch_args,
+    _schedule_args,
+    spmm_csr,
+)
+
+def _assert_within_terms(out, ref, scale):
+    """fp32, summation order only (the chunked plain version adds a cut
+    row's pieces, the plain version its edges): each element within
+    ``1e-6 + 1e-5·Σ|terms|``, the tolerance of the card run, since a star
+    row sums thousands of terms that cancel."""
+    assert chip_smoke.scaled_err(out, ref, scale) <= 1.0
+
+
+CPU = torch.device("cpu")
+ADVERSARIAL = ("star", "mixed_rows", "no_edge", "middle_third_unnamed",
+               "powerlaw")
+CHUNKS = (4, 32, 128)
+
+
+def _adversarial(name, chunk):
+    found = {n: rest for n, *rest in
+             chip_smoke.adversarial_structures(CPU, chunk)}
+    assert tuple(found) == ADVERSARIAL
+    return found[name]
+
+
+def _structure_and_schedule(row, col, n, chunk, panel_rows=0, seed=0):
+    w = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=row.numel()).astype(np.float32))
+    st_ = build_spmm_structure(row, col, w, n, panel_rows, chunk_edges=chunk)
+    return st_, SpmmSchedule(*(st_[k] for k in SCHEDULE_KEYS))
+
+
+def _assert_is_a_partition(ptr, sched, chunk):
+    """Every edge of ``ptr`` lies in exactly one chunk of fewer than 2T
+    edges, rows of at most T edges lie in one chunk, and ``cross`` lists
+    exactly the other rows with the chunks that hold them."""
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    starts = sched.chunk_start.tolist()
+    assert starts[0] == lo and starts[-1] == hi
+    sizes = np.diff(starts)
+    assert (sizes >= 0).all() and (sizes < 2 * chunk).all()
+    assert sizes.sum() == hi - lo
+    lens = (ptr[1:] - ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(lens.numel()), lens)
+    assert torch.equal(sched.erow[lo:hi].long(), rows)
+    # chunk of every edge, then the chunks a row touches
+    real = [c for c in range(len(sizes)) if sizes[c] > 0]
+    edge_chunk = np.repeat(real, sizes[real])
+    cut = {}
+    for r in torch.nonzero(lens).flatten().tolist():
+        a, b = int(ptr[r]) - lo, int(ptr[r + 1]) - lo
+        first, last = int(edge_chunk[a]), int(edge_chunk[b - 1])
+        if first != last:
+            cut[r] = (first, last)
+            assert b - a > chunk
+        else:
+            assert b - a <= chunk
+    listed = {r: (f, la) for r, f, la in sched.cross.tolist() if r >= 0}
+    assert listed == cut
+    # the scratch: one slot a piece of a cut row, in the order of the edges
+    slots = sched.piece_start.tolist()
+    assert len(slots) == len(starts) and slots[0] == 0
+    want_rows = [r for r, (f, la) in sorted(cut.items(), key=lambda kv: kv[1])
+                 for _ in range(f, la + 1)]
+    assert slots[-1] == len(want_rows)
+    piece_row = sched.piece_row.tolist()
+    assert piece_row[:len(want_rows)] == want_rows
+    assert all(r == -1 for r in piece_row[len(want_rows):])
+    for r, (f, la) in cut.items():
+        # its first piece is the last one of chunk f, the others follow
+        first_slot = slots[f + 1] - 1
+        assert piece_row[first_slot:first_slot + la - f + 1] == [r] * (
+            la - f + 1)
+        assert all(slots[c] == first_slot + c - f for c in range(f + 1, la + 1))
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_schedule_puts_every_edge_in_exactly_one_chunk(name, chunk):
+    row, col, n = _adversarial(name, chunk)
+    for r, c in ((row, col), (col, row)):
+        st_, sched = _structure_and_schedule(r, c, n, chunk)
+        _assert_is_a_partition(st_["ptr"], sched, chunk)
+        pan, psched = _structure_and_schedule(r, c, n, chunk,
+                                              panel_rows=n // 3)
+        assert pan["ptr"].shape[0] == 3
+        for p, ptr in enumerate(pan["ptr"]):
+            _assert_is_a_partition(ptr, psched.panel(p), chunk)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_chunked_plain_version_matches_plain_version(name, chunk):
+    row, col, n = _adversarial(name, chunk)
+    rng = np.random.default_rng(3)
+    for r, c in ((row, col), (col, row)):
+        st_, sched = _structure_and_schedule(r, c, n, chunk)
+        pan, psched = _structure_and_schedule(r, c, n, chunk,
+                                              panel_rows=n // 3)
+        for feat in (8, 47):
+            x = _t(rng.normal(size=(n, feat)).astype(np.float32))
+            args = (st_["ptr"], st_["col"], st_["w"], x)
+            scale = spmm_csr_reference(st_["ptr"], st_["col"], st_["w"].abs(),
+                                       x.abs())
+            _assert_within_terms(spmm_csr_chunked_reference(*args, sched),
+                                 spmm_csr_reference(*args), scale)
+            acc0 = _t(rng.normal(size=(n, feat)).astype(np.float32))
+            acc, ref = acc0.clone(), acc0.clone()
+            for p, ptr in enumerate(pan["ptr"]):
+                untouched = ptr[1:] == ptr[:-1]
+                before = acc[untouched].clone()
+                spmm_csr_chunked_reference(ptr, pan["col"], pan["w"], x,
+                                           psched.panel(p), acc)
+                assert torch.equal(acc[untouched], before)
+                spmm_csr_accum_reference(ref, ptr, pan["col"], pan["w"], x)
+            _assert_within_terms(acc, ref, acc0.abs() + scale)
+
+
+@settings(max_examples=10, deadline=None)
+@given(nodes=st.integers(20, 120), degree=st.integers(1, 12),
+       chunk=st.sampled_from([3, 8, 32, 128]), seed=st.integers(0, 10_000),
+       panels=st.integers(1, 4))
+def test_chunked_plain_version_on_random_powerlaw_graphs(nodes, degree, chunk,
+                                                         seed, panels):
+    g = powerlaw_graph(nodes, avg_degree=degree, feat_dim=4, num_classes=3,
+                       seed=seed)
+    E = g.num_edges
+    # over the transpose: its rows are the power-law ones
+    row, col = g.col[:E].long(), g.row[:E].long()
+    pr = 0 if panels == 1 else -(-g.n_pad // panels)
+    st_, sched = _structure_and_schedule(row, col, g.n_pad, chunk, pr, seed)
+    x = _t(np.random.default_rng(seed).normal(
+        size=(g.n_pad, 5)).astype(np.float32))
+    ptrs = st_["ptr"] if pr else st_["ptr"][None]
+    acc = torch.zeros_like(x)
+    for p, ptr in enumerate(ptrs):
+        ps = sched.panel(p) if pr else sched
+        _assert_is_a_partition(ptr, ps, chunk)
+        spmm_csr_chunked_reference(ptr, st_["col"], st_["w"], x, ps, acc)
+    w = _t(np.random.default_rng(seed).normal(
+        size=row.numel()).astype(np.float32))    # as the structure drew them
+    _assert_within_terms(acc, tops.spmm_coo(x, row, col, w, g.n_pad),
+                         tops.spmm_coo(x.abs(), row, col, w.abs(), g.n_pad))
+
+
+def test_panel_schedule_is_each_panels_own_schedule(prepped):
+    gj, _, _ = prepped
+    row, col, _ = _edges(gj)
+    pan, sched = _structure_and_schedule(_t(row), _t(col), gj.n_pad, 16,
+                                         PANEL_ROWS)
+    assert sched.chunk_start.shape[0] == pan["ptr"].shape[0] > 1
+    for p, ptr in enumerate(pan["ptr"]):
+        own = build_spmm_schedule(ptr, 16)
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        mine = sched.panel(p)
+        assert torch.equal(own.erow[lo:hi], mine.erow[lo:hi])
+        k = own.chunk_start.numel()
+        assert torch.equal(own.chunk_start, mine.chunk_start[:k])
+        assert (mine.chunk_start[k:] == hi).all()      # padding: empty chunks
+        k = own.cross.shape[0]
+        assert torch.equal(own.cross, mine.cross[:k])
+        assert (mine.cross[k:] == -1).all()
+        k = own.piece_start.numel()
+        assert torch.equal(own.piece_start, mine.piece_start[:k])
+        assert (mine.piece_start[k:] == own.piece_start[-1]).all()
+        k = own.piece_row.numel()
+        assert torch.equal(own.piece_row, mine.piece_row[:k])
+        assert (mine.piece_row[k:] == -1).all()
+    assert sched.piece_row.shape[1] == int(sched.piece_start[:, -1].max())
+
+
+@pytest.mark.parametrize("chunk", [8, 32])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_scratch_holds_one_row_a_piece_of_a_cut_row(name, chunk):
+    """The wrappers size the scratch from the schedule's shapes alone: as
+    many rows as the cut rows have pieces, none where no row is cut."""
+    row, col, n = _adversarial(name, chunk)
+    for r, c in ((row, col), (col, row)):
+        st_, sched = _structure_and_schedule(r, c, n, chunk)
+        args, partial = _schedule_args(sched, 5, CPU)
+        n_chunks = sched.chunk_start.numel() - 1
+        assert args[3] == n_chunks and args[5] == sched.cross.shape[0]
+        cut = sched.cross[sched.cross[:, 0] >= 0]
+        pieces = int((cut[:, 2] - cut[:, 1] + 1).sum())
+        if not pieces:
+            assert partial is None and args[6] is None
+            continue
+        assert partial.shape == (pieces, 5) and args[6] == partial.data_ptr()
+        assert pieces <= n_chunks + cut.shape[0] < 2 * n_chunks
+
+
+def test_default_panels_of_a_device_prepared_graph(prepped):
+    """No height named: the structure K1/K2 read gets ``SPMM_PANELS``
+    panels whatever the graph's size, the structure of fused GAT the panels
+    of ``default_panel_rows`` (none for a table this small)."""
+    _, gt, _ = prepped
+    g = prepare_spmm_device(gt, symmetric=True)
+    assert g.extras["spmm_fw_ptr"].shape == (SPMM_PANELS, gt.n_pad + 1)
+    assert g.meta_get("spmm_panel_rows") == -(-gt.n_pad // SPMM_PANELS)
+    gat = prepare_spmm_device(gt, symmetric=True, with_orig=True)
+    assert gat.meta_get("spmm_panel_rows") == default_panel_rows(gt.n_pad) == 0
+    assert gat.extras["spmm_fw_ptr"].ndim == 1
+
+
+def test_symmetric_structure_shares_its_schedule(prepped):
+    _, gt, _ = prepped
+    for pr in (0, PANEL_ROWS):
+        ex = prepare_spmm_device(gt, symmetric=True, panel_rows=pr).extras
+        for k in SCHEDULE_KEYS:
+            assert ex[f"spmm_bw_{k}"] is ex[f"spmm_fw_{k}"]
+        one = prepare_spmm_device(gt, symmetric=True, with_orig=True,
+                                  store_w=True, panel_rows=pr).extras
+        assert one["spmm_bw_erow"] is one["spmm_fw_erow"]
+    two = prepare_spmm_device(gt, panel_rows=PANEL_ROWS)
+    assert two.extras["spmm_bw_erow"] is not two.extras["spmm_fw_erow"]
+
+
+def test_prepare_spmm_and_prepare_spmm_device_give_equal_schedules():
+    # a power-law graph: columns of hundreds of edges, cut at 128 a chunk
+    g = tg.sym_norm(tg.add_self_loops(powerlaw_graph(
+        1500, avg_degree=20, feat_dim=4, num_classes=3, seed=2)))
+    a = prepare_spmm(g)
+    b = prepare_spmm_device(g, panel_rows=0)
+    for d in ("fw", "bw"):
+        for k in ("ptr", "col", "w") + SCHEDULE_KEYS:
+            assert torch.equal(a.extras[f"spmm_{d}_{k}"],
+                               b.extras[f"spmm_{d}_{k}"]), (d, k)
+        assert stored_schedule(a.extras, d) is not None
+    assert (a.extras["spmm_bw_cross"][:, 0] >= 0).any()
+    assert a.extras["spmm_fw_cross"].shape == (0, 3)
+
+
+def test_functions_take_the_prepared_schedules(prepped):
+    """The dispatcher hands the stored schedules to the Functions; on CPU
+    tensors they change nothing."""
+    _, gt, x = prepped
+    for g in (prepare_spmm(gt), prepare_spmm_device(gt,
+                                                    panel_rows=PANEL_ROWS)):
+        ex = g.extras
+        keys = [ex[f"spmm_{d}_{k}"] for d in ("fw", "bw")
+                for k in ("ptr", "col", "w")]
+        scheds = [SpmmSchedule(*(ex[f"spmm_{d}_{k}"] for k in SCHEDULE_KEYS))
+                  for d in ("fw", "bw")]
+        fn = SpMMPanelFunction if keys[0].ndim == 2 else SpMMFunction
+        xt = _t(x).requires_grad_(True)
+        y = fn.apply(xt, *keys, *scheds)
+        (dx,) = torch.autograd.grad(y.sum(), xt)
+        x2 = _t(x).requires_grad_(True)
+        y2 = fn.apply(x2, *keys)
+        (dx2,) = torch.autograd.grad(y2.sum(), x2)
+        assert torch.equal(y, y2) and torch.equal(dx, dx2)
+        assert torch.equal(y, maybe_cuda_spmm(g, _t(x)))
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("erow_dtype", "schedule.erow must be torch.int32"),
+    ("erow_length", "schedule.erow has"),
+    ("cross_shape", "triples"),
+    ("chunk_start_rank", "schedule.chunk_start must be 1-D"),
+    ("piece_start_shape", "schedule.piece_start must be shaped"),
+    ("scratch_overflow", "scratch"),
+])
+def test_launch_check_refuses_a_schedule_that_does_not_fit(prepped, fault,
+                                                           match):
+    _, gt, x = prepped
+    ex = prepare_spmm(gt).extras
+    ptr, col, w = (ex[f"spmm_fw_{k}"] for k in ("ptr", "col", "w"))
+    s = SpmmSchedule(*(ex[f"spmm_fw_{k}"] for k in SCHEDULE_KEYS))
+    xt = _t(x)
+    _check_launch_args(ptr, col, w, xt, schedule=s)     # the real one passes
+    bad = {
+        "erow_dtype": s._replace(erow=s.erow.long()),
+        "erow_length": s._replace(erow=s.erow[:-1]),
+        "cross_shape": s._replace(cross=s.cross.new_zeros((2, 2))),
+        "chunk_start_rank": s._replace(chunk_start=s.chunk_start[None]),
+        "piece_start_shape": s._replace(piece_start=s.piece_start[:-1]),
+        # pieces · F reaches 2³¹; the entries are never read or written
+        "scratch_overflow": s._replace(piece_row=torch.empty(
+            2 ** 31 // xt.shape[1] + 1, dtype=torch.int32)),
+    }[fault]
+    err = TypeError if fault == "erow_dtype" else ValueError
+    with pytest.raises(err, match=match):
+        _check_launch_args(ptr, col, w, xt, schedule=bad)
+
+
+def test_k1_wrapper_refuses_an_unknown_kernel_name(prepped):
+    _, gt, x = prepped
+    ex = prepare_spmm(gt).extras
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        spmm_csr(ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"],
+                 _t(x), kernel="columns")
+    with pytest.raises(ValueError, match="chunk_edges must be positive"):
+        build_spmm_schedule(ex["spmm_fw_ptr"], 0)
+    # on the CPU every name runs the plain version
+    args = (ex["spmm_fw_ptr"], ex["spmm_fw_col"], ex["spmm_fw_w"], _t(x))
+    for kernel in K1_KERNELS:
+        assert torch.equal(spmm_csr(*args, kernel=kernel),
+                           spmm_csr_reference(*args))
