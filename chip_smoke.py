@@ -10,12 +10,12 @@ then GAT through ``experiment()`` and checks that each path went through its
 kernel, compares card and CPU logits, and checks accuracy on ``sbm``. Then
 the products-scale path of ``cogdl_tpu_torch.bench`` (2.45 M nodes, about
 125 M edges, the panel structure built on the card): K2 and K3's
-accumulating form against their plain versions panel by panel, a sweep of
-panel heights, and GCN and GAT train steps with exact launch counts. K1 and
-K2 cut their work by edge chunks: both are also held against their plain
-versions on structures that sit on the chunk schedule's edges (a star, rows
-of exactly one chunk more or less, no edge at all), and the chunk size is
-swept. Then
+accumulating form against their plain versions panel by panel, sweeps of
+panel heights for GCN and GAT, and GCN and GAT train steps with exact
+launch counts. K1, K2 and K3 cut their work by edge chunks: all three are
+also held against their plain versions on structures that sit on the chunk
+schedule's edges (a star, rows of exactly one chunk more or less, no edge
+at all), and K1/K2's chunk size is swept. Then
 the gather probes (K4, K5 and K6 against their plain versions at the sizes of
 ``cogdl_tpu_torch.scripts.microbench_gather``, and every stage of that
 script with exact launch counts) and full-batch GraphSAGE through
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -140,6 +141,13 @@ SWEEP_CHUNK_EDGES = (32, 64, 128, 256)
 # widths of the adversarial checks: float4 lanes, two columns a lane, float4
 # with idle lanes
 ADVERSARIAL_FEATS = (HIDDEN, NUM_CLASSES, FEAT_DIM)
+# K3's (heads, head width) there: the GAT main path's two, and 64 heads,
+# which take two passes of 32 heads
+ADVERSARIAL_GAT_SHAPES = GAT_SHAPES + ((64, 4),)
+# the GAT panel sweep at the products shape: 1 is the single-shot K3, the
+# others K3 accumulating over that many panels; 126 was the default before
+# K3 was cut by edges
+GAT_SWEEP_PANELS = (1, 2, 8, 32, 126)
 
 
 def smi_line() -> str:
@@ -465,13 +473,63 @@ def _gat_inputs(n: int, heads: int, head_dim: int, gen, device):
             "dden": torch.randn(n, heads, generator=gen, device=device)}
 
 
+def gat_kernels(heads: int):
+    """The K3 kernels that take ``heads`` heads, by name."""
+    return tuple(k for k in sk.GAT_KERNELS
+                 if k != "rows" or heads <= sk.GAT_ROWS_MAX_HEADS)
+
+
+def gat_single_check(name: str, base, back, sched, seed):
+    """K3 single-shot (``base`` = mode, ptr, idx, orig, sd, ss, smax, h2)
+    against gat_pass_reference at attention dropout 0 and 0.6: the
+    kernel the wrapper chooses and each one by name, every output element
+    within ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``, the keep masks equal bit
+    for bit; a second call, and a call with the schedule the wrapper builds
+    itself, equal bit for bit. Returns ``(error over tolerance, largest
+    absolute error, CUDA kernels a call, kernel the wrapper ran)``."""
+    abs_base = base[:-1] + (base[-1].abs(),)
+    heads = base[4].shape[1]
+    errs, max_abs, per_call, ran = [], 0.0, 0, None
+    for drop in (0.0, GAT_ATTN_DROP):
+        kw = dict(alpha=GAT_ALPHA, attn_drop=drop, seed=seed, with_keep=True)
+        *refs, keep_ref = sk.gat_pass_reference(*base, *back, **kw)
+        # every term is a product with ex·slope·keep >= 0, so the plain
+        # pass over |tables| sums the terms' magnitudes
+        *scales, _ = sk.gat_pass_reference(*abs_base,
+                                           *(b.abs() for b in back), **kw)
+        first = sk.gat_pass(*base, *back, schedule=sched, **kw)
+        per_call, ran = sk.gat_pass.cuda_kernels, sk.gat_pass.kernel
+        runs = [first] + [sk.gat_pass(*base, *back, schedule=sched,
+                                      kernel=k, **kw)
+                          for k in gat_kernels(heads)]
+        for *outs, keep in runs:
+            if not torch.equal(keep, keep_ref):
+                raise AssertionError(
+                    f"{name}: keep mask differs from the plain version's at "
+                    f"drop {drop} in {int((keep != keep_ref).sum())} entries")
+            errs += [scaled_err(o, r, sc)
+                     for o, r, sc in zip(outs, refs, scales)]
+            max_abs = max([max_abs] + [float((o - r).abs().max())
+                                       for o, r in zip(outs, refs)])
+        again = sk.gat_pass(*base, *back, schedule=sched, **kw)
+        own = sk.gat_pass(*base, *back, **kw)
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(first, again, own)):
+            raise AssertionError(
+                f"{name}: a second call, or a call with the schedule the "
+                f"wrapper builds, gave other bits at drop {drop}")
+    return max(errs), max_abs, per_call, ran
+
+
 def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
                            iters: int = 20):
     """K3 against gat_pass_reference in each mode at the GAT main path's two
-    shapes, with attention dropout off and at 0.6: every output element
-    within ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|`` and the keep masks equal
-    bit for bit. Times each mode and shape at dropout 0.6 (the training
-    passes). Returns one measurement entry per mode and shape."""
+    shapes, with attention dropout off and at 0.6 (:func:`gat_single_check`):
+    every output element within ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``, the
+    keep masks equal bit for bit, repeat calls and both schedules bit for
+    bit. Times each mode and shape at dropout 0.6 (the training passes),
+    the kernel the wrapper chooses and each by name. Returns one
+    measurement entry per mode and shape."""
     g = kernel_graph(num_nodes, device)
     ex = g.extras
     gen = torch.Generator(device=device).manual_seed(1)
@@ -482,45 +540,34 @@ def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
         for mode in sk.GAT_MODES:
             d = "bw" if mode == "dsrc" else "fw"
             ptr, idx, orig = (ex[f"spmm_{d}_{k}"] for k in ("ptr", "col", "orig"))
+            sched = stored_schedule(ex, d)
+            chunks, cross_rows = schedule_stats(sched)
             back = () if mode == "fwd" else (t["dagg"], t["dden"])
             base = (mode, ptr, idx, orig, t["sd"], t["ss"], t["smax"], t["h2"])
-            abs_base = base[:-1] + (t["h2"].abs(),)
             name = f"gat_pass[{mode},H={heads},D={head_dim}]"
-            errs, max_abs = [], 0.0
-            for drop in (0.0, GAT_ATTN_DROP):
-                kw = dict(alpha=GAT_ALPHA, attn_drop=drop, seed=seed,
-                          with_keep=True)
-                *outs, keep = sk.gat_pass(*base, *back, **kw)
-                *refs, keep_ref = sk.gat_pass_reference(*base, *back, **kw)
-                # every term is a product with ex·slope·keep >= 0, so the
-                # plain pass over |tables| sums the terms' magnitudes
-                *scales, _ = sk.gat_pass_reference(
-                    *abs_base, *(b.abs() for b in back), **kw)
-                if not torch.equal(keep, keep_ref):
-                    raise AssertionError(
-                        f"{name}: keep mask differs from the plain version's "
-                        f"at drop {drop} in {int((keep != keep_ref).sum())} "
-                        "entries")
-                errs += [scaled_err(o, r, sc)
-                         for o, r, sc in zip(outs, refs, scales)]
-                max_abs = max([max_abs] + [float((o - r).abs().max())
-                                           for o, r in zip(outs, refs)])
-            if not max(errs) <= 1.0:
+            err, max_abs, per_call, ran = gat_single_check(name, base, back,
+                                                           sched, seed)
+            if not err <= 1.0:
                 raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                     f"version ({max(errs):.3g} x tolerance)")
+                                     f"version ({err:.3g} x tolerance)")
             kw = dict(alpha=GAT_ALPHA, attn_drop=GAT_ATTN_DROP, seed=seed)
+
+            def run(kernel=None):
+                return sk.gat_pass(*base, *back, schedule=sched,
+                                   kernel=kernel, **kw)
+
             nnz = idx.numel()
             x_rows = int(torch.unique(idx).numel())
             own_rows = int((ptr[1:] > ptr[:-1]).sum())
             b_ms, b_by = gat_bound_ms(mode, g.n_pad, nnz, x_rows, own_rows,
                                       heads, head_dim, drop=True)
+            ms = time_ms(run, device, iters)
             entry = {
                 "name": name, "route": "cuda", "source": GAT_SOURCE,
                 "replaces": GAT_REPLACES, "launches": None,
                 "case": ["gat_pass", mode, heads, head_dim],
-                "max_abs_err": max_abs, "err_over_tol": max(errs),
-                "ms": time_ms(lambda: sk.gat_pass(*base, *back, **kw), device,
-                              iters),
+                "max_abs_err": max_abs, "err_over_tol": err,
+                "ms": ms,
                 "plain_ms": time_ms(
                     lambda: sk.gat_pass_reference(*base, *back, **kw), device,
                     max(iters // 4, 1), warmup=1),
@@ -528,6 +575,14 @@ def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
                 "rows": g.n_pad, "x_rows": x_rows, "own_rows": own_rows,
                 "nnz": nnz, "attn_drop": GAT_ATTN_DROP,
                 "max_row_nnz": int((ptr[1:] - ptr[:-1]).max()),
+                "kernel": "chunks" if cross_rows else "rows",
+                "kernel_ran": ran, "chunk_edges": CHUNK_EDGES,
+                "chunks": chunks, "cross_rows": cross_rows,
+                "scratch_rows": sched.piece_row.shape[-1],
+                "cuda_kernels_per_call": per_call,
+                "share_of_bound": b_ms / ms,
+                **{f"ms_{k}": time_ms(lambda: run(k), device, iters)
+                   for k in gat_kernels(heads)},
             }
             print(f"[gat-kernel] {json.dumps(entry)}")
             entries.append(entry)
@@ -562,7 +617,8 @@ def phase_gat_autograd(device: torch.device, num_nodes: int = NUM_NODES,
             ss = (h * a_src).sum(-1)
             if route == "fused":
                 out = sk.GATFusedFunction.apply(
-                    sd, ss, h.view(n, -1), *keys, None, GAT_ALPHA, 0.0)
+                    sd, ss, h.view(n, -1), *keys, None, GAT_ALPHA, 0.0,
+                    stored_schedule(ex, "fw"), stored_schedule(ex, "bw"))
             else:
                 e = gather(sd, plain.row) + gather_src(plain, ss)
                 att = edge_softmax(
@@ -769,13 +825,16 @@ def phase_panel_autograd(device: torch.device, num_nodes: int = NUM_NODES,
 
 def gat_accum_check(mode: str, ptrs, idx, t, drop: float, seed, gen,
                     device: torch.device, with_keep: bool,
-                    plain_dtype: torch.dtype = torch.float32):
+                    plain_dtype: torch.dtype = torch.float32, sched=None,
+                    acc0=None):
     """K3's accumulating form (coordinate-keyed dropout) panel by panel from
-    non-zero accumulators against its plain version run the same way; rows
+    non-zero accumulators (``acc0``, else drawn from ``gen``) against its
+    plain version run the same way, with the panel structure's schedule
+    ``sched`` or, without one, the schedule the wrapper builds; rows
     without an edge in a panel must keep their values bit for bit and, with
-    ``with_keep``, the keep masks must be equal. Returns ``(error over
-    tolerance, largest absolute error, plain ms per sweep)``; the tolerance
-    is relative to ``|acc0| + Σ|terms|`` of each element.
+    ``with_keep``, the keep masks must be equal. Returns ``(accumulators,
+    error over tolerance, largest absolute error, plain ms per sweep)``; the
+    tolerance is relative to ``|acc0| + Σ|terms|`` of each element.
 
     ``plain_dtype``: the type the plain version runs in, on the same inputs.
     At the products shape it is float64: there the float32 ``index_add_``
@@ -785,8 +844,9 @@ def gat_accum_check(mode: str, ptrs, idx, t, drop: float, seed, gen,
     700.00 W)."""
     n, heads = t["sd"].shape
     hd = t["h2"].shape[1]
-    acc = tuple(torch.randn(n, wd, generator=gen, device=device)
-                for wd in sk.gat_output_widths(mode, heads, hd))
+    acc = tuple(a.clone() for a in acc0) if acc0 is not None else tuple(
+        torch.randn(n, wd, generator=gen, device=device)
+        for wd in sk.gat_output_widths(mode, heads, hd))
     ref = tuple(a.to(plain_dtype, copy=True) for a in acc)
     scale = tuple(a.abs().to(plain_dtype) for a in acc)
     back = () if mode == "fwd" else (t["dagg"], t["dden"])
@@ -800,7 +860,8 @@ def gat_accum_check(mode: str, ptrs, idx, t, drop: float, seed, gen,
         untouched = ptr[1:] == ptr[:-1]
         before = [a[untouched] for a in acc]
         outs = sk.gat_pass(mode, ptr, idx, None, *base, t["h2"], *back,
-                           acc=acc, with_keep=with_keep, **kw)
+                           acc=acc, with_keep=with_keep,
+                           schedule=sched and sched.panel(p), **kw)
         if not all(torch.equal(a[untouched], b) for a, b in zip(acc, before)):
             raise AssertionError(f"gat_pass[{mode}]: panel {p} changed rows "
                                  "it has no edge for")
@@ -824,7 +885,7 @@ def gat_accum_check(mode: str, ptrs, idx, t, drop: float, seed, gen,
     errs = [scaled_err(a.to(plain_dtype), r, sc)
             for a, r, sc in zip(acc, ref, scale)]
     max_abs = max(float((a - r).abs().max()) for a, r in zip(acc, ref))
-    return max(errs), max_abs, plain_ms
+    return acc, max(errs), max_abs, plain_ms
 
 
 def phase_gat_accum_check(device: torch.device, num_nodes: int = NUM_NODES,
@@ -834,7 +895,9 @@ def phase_gat_accum_check(device: torch.device, num_nodes: int = NUM_NODES,
     panels of the 100k graph: sums within ``KERNEL_ATOL +
     KERNEL_RTOL·Σ|terms|``, coordinate-keyed keep masks equal bit for bit.
     Returns the errors over tolerance."""
-    g, gp = _panel_graph(num_nodes, device, n_panels)
+    g = kernel_graph(num_nodes, device)
+    gp = prepare_spmm_device(g, with_orig=True,
+                             panel_rows=-(-g.n_pad // n_panels))
     gen = torch.Generator(device=device).manual_seed(5)
     seed = torch.tensor([987654321], dtype=torch.int64, device=device)
     report = {}
@@ -845,7 +908,8 @@ def phase_gat_accum_check(device: torch.device, num_nodes: int = NUM_NODES,
             ptrs, idx = gp.extras[f"spmm_{d}_ptr"], gp.extras[f"spmm_{d}_col"]
             report[f"{mode},H={heads},D={head_dim}"] = max(
                 gat_accum_check(mode, ptrs, idx, t, drop, seed, gen, device,
-                                with_keep=True)[0]
+                                with_keep=True,
+                                sched=stored_schedule(gp.extras, d))[1]
                 for drop in (0.0, GAT_ATTN_DROP))
     print(f"[gat-accum] panels={n_panels} err/tol {json.dumps(report)}")
     if not max(report.values()) <= 1.0:
@@ -889,6 +953,51 @@ def phase_panel_sweep(device: torch.device, nodes: int = PRODUCTS_NODES,
         print(f"[sweep] {json.dumps(row)}")
         if n_panels == split_at:
             row["hub_split"] = accum_hub_split(gp.extras, g.n_pad, device)
+        rows.append(row)
+        del gp, model, opt
+    return rows
+
+
+def phase_gat_panel_sweep(device: torch.device, nodes: int = PRODUCTS_NODES,
+                          avg_degree: int = PRODUCTS_AVG_DEGREE,
+                          panels=GAT_SWEEP_PANELS, steps: int = 2):
+    """GAT train step (attention dropout 0.6) at the products shape over
+    structures of 1 panel (single-shot K3, ``panel_rows=0``) and of more
+    (K3 accumulating, P calls a mode, shape and step): one warm-up step,
+    then
+    ``steps`` timed. Recorded, no limit, as :func:`phase_panel_sweep`
+    records GCN's; what ``device_layout`` says of its default panel count
+    is read off both tables."""
+    g = powerlaw_graph_device(nodes, avg_degree=avg_degree, feat_dim=FEAT_DIM,
+                              device=device)
+    args = bench.parse_args(["--model", "gat", "--attn-drop",
+                             str(GAT_ATTN_DROP), "--warmup", "1", "--steps",
+                             str(steps), "--repeats", "1"])
+    rows = []
+    for n_panels in panels:
+        pr = 0 if n_panels == 1 else -(-g.n_pad // n_panels)
+        _sync(device)
+        t0 = time.perf_counter()
+        gp = prepare_spmm_device(g, symmetric=True, with_orig=True,
+                                 panel_rows=pr)
+        _sync(device)
+        build_s = time.perf_counter() - t0
+        model, opt = bench.make_model(args, gp, device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        sk.reset_launch_counts()
+        dt = bench.time_steps(model, opt, gp, args, gen)
+        want = n_panels * (steps + 1) * (device.type == "cuda")
+        got = dict(sk.gat_pass.launches_by)
+        if set(got.values()) - {want} or (
+                sk.spmm_csr.launches + sk.spmm_csr_accum.launches):
+            raise AssertionError(f"GAT sweep at {n_panels} panels launched "
+                                 f"K3 {got}, K1/K2 {sk.spmm_csr.launches} / "
+                                 f"{sk.spmm_csr_accum.launches} times")
+        row = {"panels": int(gp.extras["spmm_fw_ptr"].shape[0])
+               if pr else 1, "panel_rows": pr,
+               "kernel": "K3" if n_panels == 1 else "K3 accumulating",
+               "step_ms": dt * 1e3, "structure_s": build_s}
+        print(f"[gat-sweep] {json.dumps(row)}")
         rows.append(row)
         del gp, model, opt
     return rows
@@ -1050,10 +1159,13 @@ def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
     """K3's accumulating form at the main path's structure, every mode at
     both GAT shapes with attention dropout 0.6: held against its plain
     version (run in float64, see :func:`gat_accum_check`) panel by panel,
-    then each panel timed by itself. Times and bound are means per launch,
-    i.e. per panel."""
+    then each panel timed by itself, on the stored schedule. Times and bound
+    are means per launch, i.e. per panel; the sweep over all panels is
+    beside them."""
     ptrs, idx = ex["spmm_fw_ptr"], ex["spmm_fw_col"]
     n_panels = ptrs.shape[0]
+    sched = stored_schedule(ex, "fw")
+    chunks, cross_rows = schedule_stats(sched)
     stats = [_panel_stats(ptr, idx) for ptr in ptrs]
     gen = torch.Generator(device=device).manual_seed(7)
     seed = torch.tensor([192837465], dtype=torch.int64, device=device)
@@ -1063,9 +1175,9 @@ def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
         hd = heads * head_dim
         for mode in sk.GAT_MODES:
             name = f"gat_pass_accum[{mode},H={heads},D={head_dim}]"
-            err, max_abs, plain_ms = gat_accum_check(
+            _, err, max_abs, plain_ms = gat_accum_check(
                 mode, ptrs, idx, t, GAT_ATTN_DROP, seed, gen, device,
-                with_keep=False, plain_dtype=torch.float64)
+                with_keep=False, plain_dtype=torch.float64, sched=sched)
             if not err <= 1.0:
                 raise AssertionError(f"{name}: kernel disagrees with its "
                                      f"plain version ({err:.3g} x tolerance)")
@@ -1073,7 +1185,8 @@ def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
                 # recorded, no limit: the same check against the float32
                 # plain version, the reason for the float64 one
                 err32 = gat_accum_check(mode, ptrs, idx, t, GAT_ATTN_DROP,
-                                        seed, gen, device, with_keep=False)[0]
+                                        seed, gen, device, with_keep=False,
+                                        sched=sched)[1]
                 print(f"[products-kernel] {name}: {err32:.3g} x tolerance "
                       "from the plain version run in float32")
             acc = tuple(torch.zeros(n_pad, wd, device=device)
@@ -1081,10 +1194,14 @@ def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
             back = () if mode == "fwd" else (t["dagg"], t["dden"])
             kw = dict(alpha=GAT_ALPHA, attn_drop=GAT_ATTN_DROP, seed=seed,
                       coord_key=True, acc=acc)
-            ms_by_panel = [time_ms(
-                lambda: sk.gat_pass(mode, ptr, idx, None, t["sd"], t["ss"],
-                                    t["smax"], t["h2"], *back, **kw),
-                device, iters, warmup=1) for ptr in ptrs]
+            ms_by_panel, per_call = [], []
+            for p, ptr in enumerate(ptrs):
+                ms_by_panel.append(time_ms(
+                    lambda: sk.gat_pass(mode, ptr, idx, None, t["sd"],
+                                        t["ss"], t["smax"], t["h2"], *back,
+                                        schedule=sched.panel(p), **kw),
+                    device, iters, warmup=1))
+                per_call.append(sk.gat_pass.cuda_kernels)
             bounds = [gat_bound_ms(mode, n_pad, nnz, x_rows, own, heads,
                                    head_dim, drop=False, accum=True)
                       for nnz, x_rows, own in stats]
@@ -1104,7 +1221,15 @@ def _gat_accum_entries(ex, n_pad: int, device: torch.device, iters: int,
                 "ms_panel_min": min(ms_by_panel),
                 "ms_panel_max": max(ms_by_panel),
                 "rows": n_pad, "nnz": sum(st[0] for st in stats),
+                "max_row_nnz": int((ptrs[:, 1:] - ptrs[:, :-1]).max()),
                 "attn_drop": GAT_ATTN_DROP,
+                "chunk_edges": CHUNK_EDGES, "chunks": chunks,
+                "cross_rows": cross_rows,
+                "scratch_rows": sched.piece_row.shape[-1],
+                "cuda_kernels_per_call": max(per_call),
+                "cuda_kernels_sweep": sum(per_call),
+                "share_of_bound": (sum(b for b, _ in bounds)
+                                   / sum(ms_by_panel)),
             }
             print(f"[products-kernel] {json.dumps(entry)}")
             entries.append(entry)
@@ -1294,22 +1419,27 @@ def adversarial_structures(device: torch.device, chunk: int = CHUNK_EDGES,
 
 
 def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
-                      n_panels: int = 3):
+                      gat_shapes=ADVERSARIAL_GAT_SHAPES, n_panels: int = 3):
     """K1 (the kernel the wrapper chooses and each one by name) and K2 (over
     ``n_panels`` source panels, from a non-zero accumulator, rows without an
     edge bit-equal after every call) against their plain versions on
     :func:`adversarial_structures`, both directions, every width of
-    ``feats``. Hard limits: every element within ``KERNEL_ATOL +
-    KERNEL_RTOL·Σ|terms|``; two calls on the same inputs equal bit for bit;
-    the prepared schedule and the one the wrapper builds equal bit for bit.
-    Returns the largest error over tolerance per structure."""
+    ``feats``; then K3 in its three modes on the same structures, both
+    directions, every shape of ``gat_shapes``, attention dropout 0 and 0.6,
+    single-shot (:func:`gat_single_check`) and accumulating over the panels
+    (:func:`gat_accum_check`). Hard limits: every element within
+    ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``; K3's keep masks bit-equal; two
+    calls on the same inputs equal bit for bit; the prepared schedule and
+    the one the wrapper builds equal bit for bit. Returns the largest error
+    over tolerance per structure."""
     gen = torch.Generator(device=device).manual_seed(12)
+    seed = torch.tensor([55555], dtype=torch.int64, device=device)
     report = {}
     for name, row, col, n in adversarial_structures(device):
         wts = torch.randn(row.numel(), generator=gen, device=device)
         worst = 0.0
         for structure, (r, c) in (("csr", (row, col)), ("csc", (col, row))):
-            one = build_spmm_structure(r, c, wts, n)
+            one = build_spmm_structure(r, c, wts, n, with_orig=True)
             pan = build_spmm_structure(r, c, wts, n,
                                        panel_rows=-(-n // n_panels))
             s_one, s_pan = (SpmmSchedule(*(st[k] for k in SCHEDULE_KEYS))
@@ -1344,12 +1474,39 @@ def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
                         f"adversarial {name} [{structure},F={feat}]: a second "
                         "call, or the schedule the wrapper builds, gave "
                         "other bits")
+            # K3 in every mode over the same structure: the mode says which
+            # end of an edge its row is (dsrc: the source)
+            for (heads, head_dim), mode in itertools.product(gat_shapes,
+                                                              sk.GAT_MODES):
+                t = _gat_inputs(n, heads, head_dim, gen, device)
+                back = () if mode == "fwd" else (t["dagg"], t["dden"])
+                tag = f"adversarial {name} [{structure},gat_pass[{mode},H=" \
+                      f"{heads},D={head_dim}]]"
+                err, *_ = gat_single_check(
+                    tag, (mode, one["ptr"], one["col"], one["orig"], t["sd"],
+                          t["ss"], t["smax"], t["h2"]), back, s_one, seed)
+                worst = max(worst, err)
+                acc0 = tuple(torch.randn(n, wd, generator=gen, device=device)
+                             for wd in sk.gat_output_widths(
+                                 mode, heads, heads * head_dim))
+                for drop in (0.0, GAT_ATTN_DROP):
+                    accs = [gat_accum_check(mode, pan["ptr"], pan["col"], t,
+                                            drop, seed, gen, device, True,
+                                            sched=sched, acc0=acc0)
+                            for sched in (s_pan, s_pan, None)]
+                    worst = max(worst, accs[0][1])
+                    if not all(torch.equal(a, b) for other in accs[1:]
+                               for a, b in zip(accs[0][0], other[0])):
+                        raise AssertionError(
+                            f"{tag}: accumulating, a second sweep, or one on "
+                            f"the schedule the wrapper builds, gave other "
+                            f"bits at drop {drop}")
         report[name] = worst
     print(f"[adversarial] chunk_edges={CHUNK_EDGES} err/tol "
           f"{json.dumps(report)}")
     if not max(report.values()) <= 1.0:
-        raise AssertionError(f"K1/K2 disagree with their plain versions on "
-                             f"an adversarial structure: {report}")
+        raise AssertionError(f"K1/K2/K3 disagree with their plain versions "
+                             f"on an adversarial structure: {report}")
     return report
 
 
@@ -1675,6 +1832,7 @@ def main() -> int:
     timed(phase_panel_parity, device)
     kernel_graph.cache_clear()
     sweep = timed(phase_panel_sweep, device)
+    gat_sweep = timed(phase_gat_panel_sweep, device)
     gcn_info, gcn_entries = timed(phase_products, device, "gcn")
     gat_prod_info, gat_entries = timed(phase_products, device, "gat")
     entries += gcn_entries + gat_entries
@@ -1699,7 +1857,8 @@ def main() -> int:
           f"{gcn_info['panels']} and {gat_prod_info['panels']} panels; "
           f"sweep best "
           f"{min(sweep, key=lambda r: r['step_ms_no_cache'])['panels']} "
-          f"panels; GraphSAGE main path (mean) train_step_ms="
+          f"panels (GAT "
+          f"{min(gat_sweep, key=lambda r: r['step_ms'])['panels']}); GraphSAGE main path (mean) train_step_ms="
           f"{sage_info['mean']['train_step_ms']:.3f} "
           f"eval_ms={sage_info['mean']['eval_ms']:.3f}, (sum) "
           f"train_step_ms={sage_info['sum']['train_step_ms']:.3f} on {smi}")

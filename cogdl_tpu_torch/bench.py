@@ -68,8 +68,8 @@ def get_parser() -> argparse.ArgumentParser:
                     "--products path) at any scale")
     ap.add_argument("--panel-rows", type=int, default=None,
                     help="source-panel height for --products/--blocked "
-                    "(default: two panels for GCN, default_panel_rows "
-                    "for GAT; 0: no panels)")
+                    "(default: two panels, for GCN and GAT alike; 0: no "
+                    "panels)")
     ap.add_argument("--no-prop-cache", action="store_true",
                     help="GCN: do not cache the first layer's propagation")
     ap.add_argument("--device", default=None,

@@ -11,7 +11,7 @@ tells the dispatchers which it is: 0, one CSR per direction (K1, K3
 single-shot); above 0, a panel-major CSR (K2, K3 accumulating). Both also
 store the schedule that cuts each structure's edges into one warp's chunks
 (``spmm_*_<field>`` for each field of ``SpmmSchedule``), which the
-dispatcher hands to K1 and K2.
+dispatchers hand to K1, K2 and K3.
 ``gather_kernels`` holds the gather probes K4-K6, which no model runs: the
 script ``cogdl_tpu_torch.scripts.microbench_gather`` drives them.
 """
@@ -45,6 +45,7 @@ from .segment_kernels import (  # noqa: F401  (public kernel-tier re-exports)
     SpMMFunction,
     SpMMPanelFunction,
     gat_pass,
+    gat_pass_chunked_reference,
     gat_pass_reference,
     reset_launch_counts,
     spmm_csr,
@@ -163,7 +164,8 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
                          ) -> Optional[torch.Tensor]:
     """Fused GAT attention (scores, softmax, dropout, aggregation) through
     K3 and :class:`GATFusedFunction` when the graph carries the prepared
-    structure — the counterpart of ``maybe_gat_fused``. A panel structure
+    structure — the counterpart of ``maybe_gat_fused``, with each
+    direction's stored schedule. A panel structure
     takes K3's accumulating form, one pass per panel with the
     coordinate-keyed dropout hash (parallel edges then share one keep/drop
     decision, as in the JAX package), and needs no ``spmm_*_orig``. ``h`` is
@@ -193,5 +195,7 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
                              device=h.device)
     out = GATFusedFunction.apply(score_dst, score_src, h.reshape(-1, H * D),
                                  *(extras.get(k) for k in _GAT_KEYS), seed,
-                                 float(alpha), float(attn_drop))
+                                 float(alpha), float(attn_drop),
+                                 stored_schedule(extras, "fw"),
+                                 stored_schedule(extras, "bw"))
     return out.view(-1, H, D)

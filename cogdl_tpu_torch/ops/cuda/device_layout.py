@@ -18,10 +18,10 @@ edge of row ``r`` in the flat ``col`` (``ptr`` is ``[n_panels, n_pad + 1]``;
 the transposed build of a symmetric edge set gives the same arrays, which
 is what lets ``symmetric=True`` share one structure between directions.
 
-Beside every structure that K1 or K2 will read goes its **schedule**
-(:func:`build_spmm_schedule`): the flat edge array cut into chunks of about
-``CHUNK_EDGES`` edges, one warp's work each, so that the kernels' load does
-not depend on the degree distribution.
+Beside every structure goes its **schedule** (:func:`build_spmm_schedule`):
+the flat edge array cut into chunks of about ``CHUNK_EDGES`` edges, one
+warp's work each in K1, K2 and K3, so that the kernels' load does not
+depend on the degree distribution.
 
 What the JAX package adds on top of this is layout for the TPU's kernels
 and has no counterpart here: 1024-slot chunks and their tile map, mega-block
@@ -35,31 +35,27 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-# Source panels of a structure that K1/K2 read, where the caller names no
-# height. Not a choice for speed: in the panel sweep of chip_smoke.py at the
-# products shape (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, "Panel sweep")
-# the GCN step is fastest with no panels at all and gets slower with every
-# panel added, since K2 costs its bytes and every panel reads and writes the
-# accumulator again. Two, the fewest that are panels, keep K2 (the port of
-# the JAX package's panel loop) on the path of a graph prepared on the
-# device, a few percent behind ``panel_rows=0``, which takes K1.
+# Source panels of a device-prepared structure, where the caller names no
+# height, for K1/K2 and for fused GAT alike. Not a choice for speed: in the
+# panel sweeps of chip_smoke.py at the products shape (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §6) the GCN and the GAT step are fastest with no
+# panels at all and get slower with every panel added, since K2 and K3 cost
+# their bytes and every panel reads and writes the accumulators again. Two,
+# the fewest that are panels, keep K2 and K3's accumulating form (the ports
+# of the JAX package's panel loops) on the path of a graph prepared on the
+# device, a few percent behind ``panel_rows=0``, which takes the
+# single-shot kernels.
 SPMM_PANELS = 2
-# Size of one panel's slice of the feature table, in MB, for the structure of
-# fused GAT (``with_orig=True``): a fifth of the H100's 50 MB L2. K3 still
-# gives a row to a warp, and a hub row's slice gathered from an L2-sized
-# panel costs it less per edge: over such structures the step got faster
-# with every halving of the slice down to 5-10 MB and slower again at 2.5
-# MB. It goes when K3 is cut by edges as K1 and K2 are.
-GAT_PANEL_BUDGET_MB = 10
 
 
-# Edges a warp of K1/K2 takes (T). Read off the sweep of chip_smoke.py over
-# 32, 64, 128 and 256 (PERF.md, "Chunk sweep").
+# Edges a warp of K1, K2 and K3 takes (T). Read off K1/K2's sweep of
+# chip_smoke.py over 32, 64, 128 and 256 (PERF.md §6).
 CHUNK_EDGES = 128
 
 
 class SpmmSchedule(NamedTuple):
-    """How K1/K2 cut one structure's edges into chunks, one warp a chunk.
+    """How K1, K2 and K3 cut one structure's edges into chunks, one warp a
+    chunk.
 
     ``erow`` int32 ``[nnz]``: the row of every entry of the flat ``col``.
     ``chunk_start`` int32 ``[n_chunks + 1]`` (``[n_panels, n_chunks + 1]``
@@ -69,8 +65,8 @@ class SpmmSchedule(NamedTuple):
     ``cross`` int32 ``[n_cross, 3]`` (``[n_panels, n_cross, 3]``): the rows
     that lie in more than one chunk, exactly those with more than ``T``
     edges, as ``(row, first chunk, last chunk)``, padded with −1. It is
-    empty when no row is longer than ``T``: the statistic the K1 wrapper
-    chooses its kernel by.
+    empty when no row is longer than ``T``: the statistic the K1 and K3
+    wrappers choose their kernel by.
     ``piece_start`` int32, shaped as ``chunk_start``: the pieces of cut rows
     that the chunks before ``c`` hold. A chunk holds at most two, in the
     order of its edges: the end of a row that began earlier, in slot
@@ -180,10 +176,12 @@ def build_spmm_schedule(ptr: torch.Tensor, chunk_edges: int = CHUNK_EDGES,
 
 
 def default_panel_rows(n_pad: int, feat_bytes: int = 512,
-                       budget_mb: int = GAT_PANEL_BUDGET_MB) -> int:
+                       budget_mb: int = 96) -> int:
     """Panel height whose slice of a ``feat_bytes``-a-row table fits
-    ``budget_mb``: 0 (no panels) when the whole table fits, else ``n_pad``
-    split into the fewest equal panels that do."""
+    ``budget_mb`` (the JAX function's default: its VMEM staging budget): 0
+    (no panels) when the whole table fits, else ``n_pad`` split into the
+    fewest equal panels that do. No default of the port's structures goes
+    by it."""
     rows_budget = (budget_mb * 1_000_000) // feat_bytes
     if rows_budget <= 0:
         raise ValueError(f"a {feat_bytes}-byte row does not fit a budget of "
@@ -206,10 +204,10 @@ def build_spmm_structure(row: torch.Tensor, col: torch.Tensor,
     ``[n_panels, n_pad + 1]`` with offsets into the flat arrays), ``col``
     (int32, global indices, sorted by (panel, row, col)), ``w`` (float32, in
     that order; absent when ``weight`` is None) and, with ``with_orig``,
-    ``orig``: each entry's position in the input edge list. With weights,
-    i.e. for K1/K2, also the tensors of the structure's
-    :class:`SpmmSchedule` at ``chunk_edges`` edges a chunk (``erow``,
-    ``chunk_start``, ``cross``, ``piece_start``, ``piece_row``)."""
+    ``orig``: each entry's position in the input edge list; and the
+    tensors of the structure's :class:`SpmmSchedule` at ``chunk_edges``
+    edges a chunk (``erow``, ``chunk_start``, ``cross``, ``piece_start``,
+    ``piece_row``), which K1, K2 and K3 read."""
     E = row.numel()
     if E >= 2 ** 31 or n_pad >= 2 ** 31:
         raise ValueError(f"build_spmm_structure: {E} edges over {n_pad} rows "
@@ -231,7 +229,7 @@ def build_spmm_structure(row: torch.Tensor, col: torch.Tensor,
     out = {"col": (key % n_pad).int()}
     key //= n_pad                                   # panel · n_pad + row
     counts = torch.bincount(key, minlength=n_panels * n_pad)
-    erow = (key % n_pad).int() if weight is not None else None
+    erow = (key % n_pad).int()
     del key
     flat = torch.zeros(n_panels * n_pad + 1, dtype=torch.int64,
                        device=row.device)
@@ -247,7 +245,7 @@ def build_spmm_structure(row: torch.Tensor, col: torch.Tensor,
     out["ptr"] = ptr
     if weight is not None:
         out["w"] = weight.detach().float()[order].contiguous()
-        out.update(build_spmm_schedule(ptr, chunk_edges, erow)._asdict())
+    out.update(build_spmm_schedule(ptr, chunk_edges, erow)._asdict())
     if with_orig:
         out["orig"] = order.int()
     return out
@@ -267,10 +265,9 @@ def prepare_spmm_device(graph, symmetric: bool = False,
     themselves, half the build and half the memory. Otherwise the transpose
     is built as well.
 
-    ``panel_rows``: the source-panel height; None gives the structure K1/K2
-    read ``SPMM_PANELS`` panels and sizes the structure of fused GAT
-    (``with_orig``) with :func:`default_panel_rows` for 128 fp32 columns;
-    0 builds one CSR (the single-shot kernels K1 and K3).
+    ``panel_rows``: the source-panel height; None gives every structure
+    ``SPMM_PANELS`` panels (K2, K3 accumulating); 0 builds one CSR (the
+    single-shot kernels K1 and K3).
     ``meta["spmm_panel_rows"]`` records it and is what the dispatchers go
     by.
 
@@ -285,11 +282,11 @@ def prepare_spmm_device(graph, symmetric: bool = False,
     GAT route never reads them. Without them a plain ``spmm`` on CUDA
     tensors raises (the JAX package falls back to its XLA tier there; the
     port has no fallback on the card) — pass ``store_w=True`` for a model
-    that mixes attention and plain aggregation on one graph. K1's and K2's
-    schedule (``spmm_*_erow``, ``spmm_*_chunk_start``, ``spmm_*_cross``,
-    ``spmm_*_piece_start``, ``spmm_*_piece_row``, see
-    :class:`SpmmSchedule`) is stored with the weights and shared between
-    the directions as they are.
+    that mixes attention and plain aggregation on one graph. The schedule
+    that K1, K2 and K3 read (``spmm_*_erow``, ``spmm_*_chunk_start``,
+    ``spmm_*_cross``, ``spmm_*_piece_start``, ``spmm_*_piece_row``, see
+    :class:`SpmmSchedule`) is stored with every structure and, under
+    ``symmetric``, shared between the directions as ``ptr`` is.
 
     The JAX function's further arguments (``r_tile``, ``block_chunks``,
     ``gather_bf16``, ``drop_empty_groups``, ``panel_rows_bw``,
@@ -300,8 +297,7 @@ def prepare_spmm_device(graph, symmetric: bool = False,
         store_w = not with_orig
     w = graph.edge_weight[:E] if store_w else None
     if panel_rows is None:
-        panel_rows = (default_panel_rows(n_pad) if with_orig
-                      else -(-n_pad // SPMM_PANELS))
+        panel_rows = -(-n_pad // SPMM_PANELS)
     orig = with_orig and panel_rows <= 0
 
     fwd = build_spmm_structure(row, col, w, n_pad, panel_rows, orig)

@@ -36,9 +36,12 @@ fused GAT scores + softmax + aggregation pass in three modes, ``fwd`` and
 ``dsd`` over the CSR (grouped by destination) and ``dsrc`` over the CSC
 (grouped by source), with the attention-dropout hash of the TPU kernel bit
 for bit, keyed on the edge's id or on its (dst, src) coordinates, and
-either single-shot or accumulating over the panels of a panel-major CSR. All
-three are bound by bytes on the H100; their sources say what the simple
-designs do about that.
+either single-shot or accumulating over the panels of a panel-major CSR. It
+cuts its work on K1/K2's schedule: one warp a chunk of edges, a cut row's
+pieces (narrow: the per-head dots are taken before a piece is stored) added
+in chunk order by K1's second kernel. :func:`gat_pass_chunked_reference`
+computes that cut in plain PyTorch for the CPU tests. All three kernels are
+bound by bytes on the H100.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first use,
 one ``nvcc`` a source, all started together, and linked into one library in
@@ -73,8 +76,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cogdl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# K3 keeps one lane a head
-GAT_MAX_HEADS = 32
+# heads K3 takes, as the Pallas kernel (segment_kernels.py:1193); its
+# row-a-warp kernel keeps one lane a head
+GAT_MAX_HEADS = 128
+GAT_ROWS_MAX_HEADS = 32
 GAT_MODES = ("fwd", "dsd", "dsrc")
 
 
@@ -158,10 +163,14 @@ def load_library() -> ctypes.CDLL:
     lib.spmm_csr_f32.restype = ctypes.c_int
     lib.spmm_csr_accum_f32.argtypes = head + tail
     lib.spmm_csr_accum_f32.restype = ctypes.c_int
+    # mode | ptr idx orig seed sd ss smax h2 dagg dden out_vec out_head
+    # keep_out | n_rows H D | alpha inv_keep | thresh | drop coord_key accum
+    # | schedule | partial_head | rows | n_kernels, stream
     lib.gat_pass_f32.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 13
         + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-        + [ctypes.c_uint32] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_uint32] + [ctypes.c_int] * 3 + schedule
+        + [ctypes.c_void_p, ctypes.c_int] + tail)
     lib.gat_pass_f32.restype = ctypes.c_int
     for name in ("spmm_csr_error_string", "spmm_csr_accum_error_string",
                  "gat_pass_error_string"):
@@ -184,6 +193,46 @@ def spmm_csr_reference(row_ptr: torch.Tensor, col: torch.Tensor,
     return x.new_zeros((n, x.shape[1])).index_add(0, row, msg)
 
 
+def _check_schedule(fn: str, schedule: SpmmSchedule, nnz: int, width: int,
+                    dev) -> None:
+    """Device, type, rank and contiguity of a schedule's tensors, ``erow``
+    as long as the flat edge arrays, and int32 offsets into a scratch of
+    ``width`` floats a piece."""
+    for name, t, ndim in (("erow", schedule.erow, 1),
+                          ("chunk_start", schedule.chunk_start, 1),
+                          ("cross", schedule.cross, 2),
+                          ("piece_start", schedule.piece_start, 1),
+                          ("piece_row", schedule.piece_row, 1)):
+        if t.device != dev:
+            raise ValueError(f"{fn}: schedule.{name} is on {t.device}, the "
+                             f"tables on {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{fn}: schedule.{name} must be torch.int32, got "
+                            f"{t.dtype}")
+        if t.ndim != ndim:
+            raise ValueError(f"{fn}: schedule.{name} must be {ndim}-D, got "
+                             f"shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: schedule.{name} must be contiguous")
+    if schedule.erow.numel() != nnz:
+        raise ValueError(f"{fn}: schedule.erow has {schedule.erow.numel()} "
+                         f"entries, the edge arrays {nnz}")
+    if schedule.chunk_start.numel() < 1 or schedule.cross.shape[1] != 3:
+        raise ValueError(
+            f"{fn}: schedule.chunk_start needs n_chunks + 1 entries and "
+            f"schedule.cross (row, first, last) triples, got shapes "
+            f"{tuple(schedule.chunk_start.shape)} and "
+            f"{tuple(schedule.cross.shape)}")
+    if schedule.piece_start.shape != schedule.chunk_start.shape:
+        raise ValueError(
+            f"{fn}: schedule.piece_start must be shaped as "
+            f"schedule.chunk_start, {tuple(schedule.chunk_start.shape)}, "
+            f"got {tuple(schedule.piece_start.shape)}")
+    if schedule.piece_row.numel() * width >= 2 ** 31:
+        raise ValueError(f"{fn}: the scratch of one partial row a piece "
+                         "overflows int32 offsets at this size")
+
+
 def _check_launch_args(row_ptr, col, w, x, acc=None, schedule=None,
                        fn="spmm_csr"):
     dev = x.device
@@ -192,15 +241,6 @@ def _check_launch_args(row_ptr, col, w, x, acc=None, schedule=None,
                ("x", x, torch.float32, 2)]
     if acc is not None:
         tensors.append(("acc", acc, torch.float32, 2))
-    if schedule is not None:
-        tensors += [("schedule.erow", schedule.erow, torch.int32, 1),
-                    ("schedule.chunk_start", schedule.chunk_start,
-                     torch.int32, 1),
-                    ("schedule.cross", schedule.cross, torch.int32, 2),
-                    ("schedule.piece_start", schedule.piece_start,
-                     torch.int32, 1),
-                    ("schedule.piece_row", schedule.piece_row,
-                     torch.int32, 1)]
     for name, t, dtype, ndim in tensors:
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, x on {dev}")
@@ -224,24 +264,7 @@ def _check_launch_args(row_ptr, col, w, x, acc=None, schedule=None,
     if max(x.numel(), col.numel()) >= 2 ** 31:
         raise ValueError(f"{fn}: int32 offsets overflow at this size")
     if schedule is not None:
-        if schedule.erow.numel() != col.numel():
-            raise ValueError(f"{fn}: schedule.erow has "
-                             f"{schedule.erow.numel()} entries, col "
-                             f"{col.numel()}")
-        if schedule.chunk_start.numel() < 1 or schedule.cross.shape[1] != 3:
-            raise ValueError(
-                f"{fn}: schedule.chunk_start needs n_chunks + 1 entries and "
-                f"schedule.cross (row, first, last) triples, got shapes "
-                f"{tuple(schedule.chunk_start.shape)} and "
-                f"{tuple(schedule.cross.shape)}")
-        if schedule.piece_start.shape != schedule.chunk_start.shape:
-            raise ValueError(
-                f"{fn}: schedule.piece_start must be shaped as "
-                f"schedule.chunk_start, {tuple(schedule.chunk_start.shape)}, "
-                f"got {tuple(schedule.piece_start.shape)}")
-        if schedule.piece_row.numel() * x.shape[1] >= 2 ** 31:
-            raise ValueError(f"{fn}: the scratch of one partial row a piece "
-                             "overflows int32 offsets at this size")
+        _check_schedule(fn, schedule, col.numel(), x.shape[1], dev)
 
 
 # every wrapper that counts its launches; the modules of the other kernels
@@ -643,6 +666,28 @@ def gat_output_widths(mode: str, H: int, HD: int) -> Tuple[int, ...]:
     return (H,) if mode == "dsd" else (HD, H)
 
 
+def _gat_edge_terms(mode: str, grp, nbr, e: slice, orig, sd, ss, smax, *,
+                    alpha: float, attn_drop: float, seed, coord_key: bool):
+    """K3's per-(edge, head) terms for the edges ``e`` of the flat arrays,
+    ``grp`` their grouping rows and ``nbr`` their neighbours (long): ``(dst,
+    src, ex, slope, keep)``, ``keep`` None without attention dropout, in the
+    order of the JAX kernel's formulas (``segment_kernels.py:640-655``)."""
+    H = sd.shape[1]
+    dst, src = (nbr, grp) if mode == "dsrc" else (grp, nbr)
+    sd_e = sd.index_select(0, dst)
+    pre = sd_e + ss.index_select(0, src)
+    slope = torch.where(pre > 0, 1.0, alpha)
+    m = sd_e + smax
+    m = torch.where(m > 0, m, alpha * m)
+    ex = torch.exp(pre * slope - m)
+    keep = None
+    if attn_drop > 0.0 and coord_key:
+        keep = dropout_keep_reference(None, seed, H, attn_drop, dst, src)
+    elif attn_drop > 0.0:
+        keep = dropout_keep_reference(orig[e], seed, H, attn_drop)
+    return dst, src, ex, slope, keep
+
+
 def gat_pass_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
                        dagg=None, dden=None, *, alpha: float,
                        attn_drop: float = 0.0, seed=None,
@@ -666,19 +711,9 @@ def gat_pass_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
         grp = grp_all[a: a + _REFERENCE_EDGE_CHUNK]
         E = grp.numel()
         e = slice(lo + a, lo + a + E)
-        nbr = idx[e].long()
-        dst, src = (nbr, grp) if mode == "dsrc" else (grp, nbr)
-        sd_e = sd.index_select(0, dst)
-        pre = sd_e + ss.index_select(0, src)
-        slope = torch.where(pre > 0, 1.0, alpha)
-        m = sd_e + smax
-        m = torch.where(m > 0, m, alpha * m)
-        ex = torch.exp(pre * slope - m)
-        keep = None
-        if attn_drop > 0.0 and coord_key:
-            keep = dropout_keep_reference(None, seed, H, attn_drop, dst, src)
-        elif attn_drop > 0.0:
-            keep = dropout_keep_reference(orig[e], seed, H, attn_drop)
+        dst, src, ex, slope, keep = _gat_edge_terms(
+            mode, grp, idx[e].long(), e, orig, sd, ss, smax, alpha=alpha,
+            attn_drop=attn_drop, seed=seed, coord_key=coord_key)
         exn = ex if keep is None else ex * keep
         if mode == "fwd":
             msg = h2.index_select(0, src).view(E, H, D) * exn[:, :, None]
@@ -697,6 +732,133 @@ def gat_pass_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
         if with_keep:
             keep_all[e] = 1.0 if keep is None else keep
     return outs + ((keep_all,) if with_keep else ())
+
+
+def _chunk_targets(ptr, schedule: SpmmSchedule):
+    """Where the kernels put each edge of ``ptr``'s range on ``schedule``:
+    ``(lo, grp, piece, slot)``, ``piece`` true for an edge of a row that is
+    cut, ``slot`` its piece's slot in the scratch (the chunk's head slot
+    ``piece_start[c]`` for the end of a row that began in an earlier chunk,
+    else its tail slot ``piece_start[c + 1] − 1``). Raises when the schedule
+    does not fit ``ptr``."""
+    lo, grp = panel_edges(ptr)
+    hi = lo + grp.numel()
+    erow = schedule.erow.long()
+    if not torch.equal(erow[lo:hi], grp):
+        raise AssertionError("schedule.erow does not hold the rows of ptr")
+    starts = schedule.chunk_start.long()
+    edge = torch.arange(lo, hi, device=grp.device)
+    c = torch.searchsorted(starts, edge, right=True) - 1
+    cs, ce = starts[c], starts[c + 1]
+    before = torch.where(cs > lo, erow[(cs - 1).clamp_min(0)], -1)
+    after = torch.where(ce < hi, erow[ce.clamp_max(erow.numel() - 1)], -1)
+    first_row, last_row = erow[cs], erow[ce - 1]
+    head = (before == first_row) & (grp == first_row)
+    piece = head | ((after == last_row) & (grp == last_row))
+    slot = torch.where(head, schedule.piece_start[c],
+                       schedule.piece_start[c + 1] - 1).long()
+    cut = schedule.cross[:, 0]
+    cut = cut[cut >= 0].long()
+    if not (torch.equal(torch.unique(grp[piece]), torch.unique(cut))
+            and torch.equal(schedule.piece_row.long()[slot[piece]],
+                            grp[piece])):
+        raise AssertionError("the schedule's cut rows or piece slots do not "
+                             "fit ptr")
+    return lo, grp, piece, slot
+
+
+def gat_pass_chunked_reference(mode: str, ptr, idx, orig, sd, ss, smax, h2,
+                               dagg=None, dden=None, *,
+                               schedule: SpmmSchedule, alpha: float,
+                               attn_drop: float = 0.0, seed=None,
+                               with_keep: bool = False, acc=None,
+                               coord_key: bool = False):
+    """K3 in plain PyTorch *the way the chunk kernel cuts it* on
+    ``schedule``, for the CPU tests: the per-edge terms of
+    :func:`gat_pass_reference`, summed with ``index_add_`` into the rows
+    that lie inside a chunk and into the scratch slots of the pieces of cut
+    rows; the per-head dots of ``dsd`` and ``dsrc`` taken of each row's and
+    each piece's summed vector (so a ``dsd`` piece is ``<dagg[r], Σ
+    ex·slope·keep·h2[c]> + dden[r]·Σ ex·slope``); then each cut row's pieces
+    added in slot (chunk) order and written, or added, once. Vectorised:
+    small and medium structures in one go. Arguments and results as
+    :func:`gat_pass`."""
+    n, H = ptr.numel() - 1, sd.shape[1]
+    HD = h2.shape[1]
+    D = HD // H
+    lo, grp, piece, slot = _chunk_targets(ptr, schedule)
+    E = grp.numel()
+    e = slice(lo, lo + E)
+    dst, src, ex, slope, keep = _gat_edge_terms(
+        mode, grp, idx[e].long(), e, orig, sd, ss, smax, alpha=alpha,
+        attn_drop=attn_drop, seed=seed, coord_key=coord_key)
+    exn = ex if keep is None else ex * keep
+    # per edge: the vector output's term, the vector the dots are taken of
+    # (if any) and the per-head term
+    if mode == "fwd":
+        vec = (h2.index_select(0, src).view(E, H, D) * exn[:, :, None])
+        dotted, head = None, ex
+    elif mode == "dsd":
+        vec = None
+        dotted = h2.index_select(0, src).view(E, H, D) * (exn * slope)[
+            :, :, None]
+        head = ex * slope
+    else:
+        dagg_e = dagg.index_select(0, dst).view(E, H, D)
+        vec = dagg_e * exn[:, :, None]
+        dotted = dagg_e * (exn * slope)[:, :, None]
+        head = dden.index_select(0, dst) * ex * slope
+
+    def sums(at, to, key):
+        """Per target (rows ``key``: a grouping row, or a slot's row) the
+        sums of the edges ``at``, which go to targets ``to``: the vector,
+        and the per-head value with the dots taken."""
+        t = key.numel()
+        v = None if vec is None else vec.new_zeros((t, HD)).index_add_(
+            0, to, vec[at].reshape(-1, HD))
+        h = head.new_zeros((t, H)).index_add_(0, to, head[at])
+        if dotted is not None:
+            d = dotted.new_zeros((t, HD)).index_add_(
+                0, to, dotted[at].reshape(-1, HD)).view(t, H, D)
+            own = (dagg if mode == "dsd" else h2).index_select(0, key)
+            dot = (own.view(t, H, D) * d).sum(-1)
+            h = dot + (dden.index_select(0, key) * h if mode == "dsd" else h)
+        return v, h
+
+    inside = ~piece
+    row_vec, row_head = sums(inside, grp[inside],
+                             torch.arange(n, device=grp.device))
+    slot_vec, slot_head = sums(piece, slot[piece],
+                               schedule.piece_row.long().clamp_min(0))
+    has = torch.zeros(n, dtype=torch.bool, device=grp.device)
+    has[grp[inside]] = True
+    # each cut row's pieces, added in slot order
+    cut = schedule.piece_row.long()
+    real = cut >= 0
+    tot_head = slot_head.new_zeros((n, H)).index_add_(0, cut[real],
+                                                      slot_head[real])
+    tot_vec = None if vec is None else slot_vec.new_zeros((n, HD)).index_add_(
+        0, cut[real], slot_vec[real])
+    is_cut = torch.zeros(n, dtype=torch.bool, device=grp.device)
+    is_cut[cut[real]] = True
+    outs = acc if acc is not None else tuple(
+        sd.new_zeros((n, w)) for w in gat_output_widths(mode, H, HD))
+    out_vec, out_head = (None, *outs) if mode == "dsd" else outs
+    for out, rows, tot in ((out_vec, row_vec, tot_vec),
+                           (out_head, row_head, tot_head)):
+        if out is None:
+            continue
+        if acc is None:
+            out[has] = rows[has]
+            out[is_cut] = tot[is_cut]
+        else:
+            out[has] += rows[has]
+            out[is_cut] += tot[is_cut]
+    if not with_keep:
+        return outs
+    keep_all = sd.new_zeros((idx.numel(), H))
+    keep_all[e] = 1.0 if keep is None else keep
+    return outs + (keep_all,)
 
 
 def _check_gat_args(mode, tensors, n, H, HD):
@@ -727,6 +889,9 @@ def _check_gat_args(mode, tensors, n, H, HD):
         raise ValueError("gat_pass: int32 offsets overflow at this size")
 
 
+GAT_KERNELS = ("rows", "chunks")
+
+
 def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
              orig: Optional[torch.Tensor], sd: torch.Tensor, ss: torch.Tensor,
              smax: torch.Tensor, h2: torch.Tensor,
@@ -735,21 +900,24 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
              attn_drop: float = 0.0, seed: Optional[torch.Tensor] = None,
              with_keep: bool = False,
              acc: Optional[Tuple[torch.Tensor, ...]] = None,
-             coord_key: bool = False) -> Tuple[torch.Tensor, ...]:
+             coord_key: bool = False,
+             schedule: Optional[SpmmSchedule] = None,
+             kernel: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """One K3 pass over the grouping ``ptr``/``idx`` (int32; the CSR of the
     graph for ``fwd`` and ``dsd``, its CSC for ``dsrc``), ``orig`` the int32
     position of each edge in the graph's edge list (the dropout key).
     ``ptr`` may be one panel's row of a panel-major CSR: offsets into the
     flat ``idx``.
 
-    ``sd``/``ss`` ``[n, H]`` are the score halves, ``smax`` ``[H]`` the max
-    of ``ss`` over all rows, ``h2`` ``[n, H·D]`` the transformed features;
-    the backward modes also take ``dagg = g/den`` ``[n, H·D]`` and
-    ``dden = −Σ_d g·out/den`` ``[n, H]``. ``seed`` is a one-element int64
-    tensor, read when ``attn_drop > 0``. Returns ``(num, den)`` for ``fwd``,
-    ``(dsd,)`` for ``dsd``, ``(dh2, dss)`` for ``dsrc``, and with
-    ``with_keep`` also the ``[nnz, H]`` keep scales the pass used (0 for
-    entries outside ``ptr``'s range).
+    ``sd``/``ss`` ``[n, H]`` are the score halves (``H`` up to
+    ``GAT_MAX_HEADS``), ``smax`` ``[H]`` the max of ``ss`` over all rows,
+    ``h2`` ``[n, H·D]`` the transformed features; the backward modes also
+    take ``dagg = g/den`` ``[n, H·D]`` and ``dden = −Σ_d g·out/den``
+    ``[n, H]``. ``seed`` is a one-element int64 tensor, read when
+    ``attn_drop > 0``. Returns ``(num, den)`` for ``fwd``, ``(dsd,)`` for
+    ``dsd``, ``(dh2, dss)`` for ``dsrc``, and with ``with_keep`` also the
+    ``[nnz, H]`` keep scales the pass used (0 for entries outside ``ptr``'s
+    range).
 
     ``acc``: the mode's output buffers; the pass adds its sums into them in
     place, leaves rows without an edge in ``ptr``'s range untouched, and
@@ -758,12 +926,26 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     instead of ``orig ^ seed``; ``orig`` is then not read. Parallel edges
     share one decision under this key.
 
+    ``schedule``: the :class:`SpmmSchedule` of ``ptr`` (a panel's:
+    ``SpmmSchedule.panel(p)``) that ``prepare_spmm`` or
+    ``prepare_spmm_device`` stored; without one it is built from ``ptr`` on
+    the device on every call. ``kernel``: ``"chunks"``, the edge-chunk
+    kernel, or ``"rows"``, one warp a row (at most ``GAT_ROWS_MAX_HEADS``
+    heads); None takes ``"rows"`` for a structure without a row longer than
+    a chunk (``schedule.cross`` empty) and at most that many heads, else
+    ``"chunks"``.
+
     CUDA tensors run K3 on the current stream; CPU tensors run
-    :func:`gat_pass_reference`. Each launch adds one to
-    ``gat_pass.launches`` and ``gat_pass.launches_by[(mode, H, D)]``."""
+    :func:`gat_pass_reference`. Each call adds one to ``gat_pass.launches``
+    and ``gat_pass.launches_by[(mode, H, D)]``, however many CUDA kernels it
+    starts (``gat_pass.cuda_kernels`` holds that number of the last call,
+    ``gat_pass.kernel`` the name of the kernel it ran)."""
     if mode not in GAT_MODES:
         raise ValueError(f"gat_pass: mode must be one of {GAT_MODES}, got "
                          f"{mode!r}")
+    if kernel not in (None, *GAT_KERNELS):
+        raise ValueError(f"gat_pass: kernel must be one of {GAT_KERNELS} or "
+                         f"None, got {kernel!r}")
     if not sd.is_cuda:
         return gat_pass_reference(mode, ptr, idx, orig, sd, ss, smax, h2,
                                   dagg, dden, alpha=alpha,
@@ -772,10 +954,13 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
                                   coord_key=coord_key)
     n, H = sd.shape
     HD = h2.shape[1]
-    if not 1 <= H <= GAT_MAX_HEADS or HD % H:
-        raise ValueError(f"gat_pass: the kernel takes 1 <= H <= "
-                         f"{GAT_MAX_HEADS} heads dividing H·D, got H={H}, "
-                         f"H·D={HD}")
+    rows_ok = H <= GAT_ROWS_MAX_HEADS
+    if not 1 <= H <= GAT_MAX_HEADS or HD % H or (
+            kernel == "rows" and not rows_ok):
+        raise ValueError(
+            f"gat_pass: the kernel takes 1 <= H <= "
+            f"{GAT_ROWS_MAX_HEADS if kernel == 'rows' else GAT_MAX_HEADS} "
+            f"heads dividing H·D, got H={H}, H·D={HD}")
     D = HD // H
     drop = attn_drop > 0.0
     tensors = {"ptr": ptr, "idx": idx, "sd": sd, "ss": ss, "smax": smax,
@@ -800,6 +985,12 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     if ptr.numel() != n + 1:
         raise ValueError(f"gat_pass: ptr has {ptr.numel()} entries for {n} "
                          "rows")
+    if schedule is None and kernel != "rows":
+        schedule = _own_schedule(ptr, idx)
+    if schedule is not None:
+        _check_schedule("gat_pass", schedule, idx.numel(), HD + H, sd.device)
+    if kernel is None:
+        kernel = "rows" if rows_ok and not schedule.cross.shape[0] else "chunks"
     nnz = idx.numel()
     if acc is not None:
         out_vec, out_head = (None, *acc) if mode == "dsd" else acc
@@ -810,11 +1001,21 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
     keep = (torch.zeros((nnz, H), dtype=torch.float32, device=sd.device)
             if with_keep else None)
     thresh, inv_keep = _drop_params(attn_drop) if drop else (0, 1.0)
+    # the scratch: a vector (fwd, dsrc) and a per-head row a piece of a cut
+    # row, only when a row is cut
+    sched_args, partial_head = (None, None, None, 0, None, 0, None), None
+    if kernel == "chunks":
+        sched_args, partial_vec = _schedule_args(
+            schedule, 0 if mode == "dsd" else HD, sd.device)
+        if schedule.cross.shape[0]:
+            partial_head = torch.empty((schedule.piece_row.numel(), H),
+                                       dtype=torch.float32, device=sd.device)
     lib = load_library()
 
     def p(t):
         return None if t is None else t.data_ptr()
 
+    started = ctypes.c_int(0)
     with torch.cuda.device(sd.device):
         stream = torch.cuda.current_stream(sd.device).cuda_stream
         err = lib.gat_pass_f32(
@@ -824,13 +1025,17 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
             p(dagg) if mode != "fwd" else None,
             p(dden) if mode != "fwd" else None, p(out_vec), p(out_head),
             p(keep), n, H, D, float(alpha), inv_keep, thresh, int(drop),
-            int(coord_key), int(acc is not None), stream)
+            int(coord_key), int(acc is not None), *sched_args,
+            p(partial_head), int(kernel == "rows"), ctypes.byref(started),
+            stream)
     if err != 0:
         raise RuntimeError(
             f"gat_pass[{mode}] kernel launch failed: CUDA error {err} "
             f"({lib.gat_pass_error_string(err).decode()})")
     gat_pass.launches += 1
     gat_pass.launches_by[(mode, H, D)] += 1
+    gat_pass.cuda_kernels = started.value
+    gat_pass.kernel = kernel
     outs = {"fwd": (out_vec, out_head), "dsd": (out_head,),
             "dsrc": (out_vec, out_head)}[mode]
     return outs + ((keep,) if with_keep else ())
@@ -838,23 +1043,28 @@ def gat_pass(mode: str, ptr: torch.Tensor, idx: torch.Tensor,
 
 gat_pass.launches = 0
 gat_pass.launches_by = collections.Counter()
+gat_pass.cuda_kernels = 0
+gat_pass.kernel = None
 COUNTED_WRAPPERS += [spmm_csr, spmm_csr_accum, gat_pass]
 
 
-def _gat_sweep(mode: str, ptr, idx, orig, sd, *tables, **kw):
+def _gat_sweep(mode: str, ptr, idx, orig, schedule, sd, *tables, **kw):
     """One K3 sweep over a whole structure: a single pass over a CSR
     (``ptr`` 1-D, dropout keyed on ``orig``), or, over a panel-major CSR
     (``ptr`` ``[n_panels, n + 1]``), one pass per panel into one zeroed
     accumulator with the coordinate-keyed dropout hash, as the JAX
-    package's ``_gat_apply`` drives its blocked layouts."""
+    package's ``_gat_apply`` drives its blocked layouts. ``schedule``: the
+    structure's stored :class:`SpmmSchedule`, or None."""
     if ptr.ndim == 1:
-        return gat_pass(mode, ptr, idx, orig, sd, *tables, **kw)
+        return gat_pass(mode, ptr, idx, orig, sd, *tables, schedule=schedule,
+                        **kw)
     n, H = sd.shape
     acc = tuple(sd.new_zeros((n, w)) for w in gat_output_widths(
         mode, H, tables[2].shape[1]))
-    for panel_ptr in ptr:
+    for p, panel_ptr in enumerate(ptr):
         gat_pass(mode, panel_ptr, idx, None, sd, *tables, acc=acc,
-                 coord_key=True, **kw)
+                 coord_key=True, schedule=schedule and schedule.panel(p),
+                 **kw)
     return acc
 
 
@@ -869,7 +1079,8 @@ class GATFusedFunction(torch.autograd.Function):
     Inputs: ``sd``, ``ss``, ``h2``; the CSR (``fw_ptr``, ``fw_col``,
     ``fw_orig``) and CSC (``bw_ptr``, ``bw_col``, ``bw_orig``) of
     ``prepare_spmm``; ``seed`` (one-element int64 tensor or None),
-    ``alpha``, ``attn_drop``. The softmax shift ``lrelu(sd + max ss)`` is
+    ``alpha``, ``attn_drop``; then optionally each direction's prepared
+    :class:`SpmmSchedule`. The softmax shift ``lrelu(sd + max ss)`` is
     exact and gets no gradient.
 
     Over the panel-major CSR of ``prepare_spmm_device`` (``fw_ptr`` and
@@ -880,23 +1091,27 @@ class GATFusedFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sd, ss, h2, fw_ptr, fw_col, fw_orig, bw_ptr, bw_col,
-                bw_orig, seed, alpha: float, attn_drop: float):
+                bw_orig, seed, alpha: float, attn_drop: float,
+                fw_schedule=None, bw_schedule=None):
         sd, ss, h2 = sd.contiguous(), ss.contiguous(), h2.contiguous()
         n, H = sd.shape
         smax = ss.detach().amax(0).contiguous()
-        num, den = _gat_sweep("fwd", fw_ptr, fw_col, fw_orig, sd, ss, smax,
-                              h2, alpha=alpha, attn_drop=attn_drop, seed=seed)
+        num, den = _gat_sweep("fwd", fw_ptr, fw_col, fw_orig, fw_schedule,
+                              sd, ss, smax, h2, alpha=alpha,
+                              attn_drop=attn_drop, seed=seed)
         den = den.clamp_min(1e-16)
         out = (num.view(n, H, -1) / den[:, :, None]).view(n, -1)
         ctx.save_for_backward(sd, ss, h2, smax, den, out, fw_ptr, fw_col,
                               fw_orig, bw_ptr, bw_col, bw_orig, seed)
         ctx.alpha, ctx.attn_drop = alpha, attn_drop
+        ctx.schedules = fw_schedule, bw_schedule
         return out
 
     @staticmethod
     def backward(ctx, g):
         (sd, ss, h2, smax, den, out, fw_ptr, fw_col, fw_orig, bw_ptr, bw_col,
          bw_orig, seed) = ctx.saved_tensors
+        fw_schedule, bw_schedule = ctx.schedules
         n, H = sd.shape
         g = g.contiguous().view(n, H, -1)
         dagg = (g / den[:, :, None]).reshape(n, -1)
@@ -904,9 +1119,10 @@ class GATFusedFunction(torch.autograd.Function):
         kw = dict(alpha=ctx.alpha, attn_drop=ctx.attn_drop, seed=seed)
         dsd = dss = dh2 = None
         if ctx.needs_input_grad[0]:
-            (dsd,) = _gat_sweep("dsd", fw_ptr, fw_col, fw_orig, sd, ss, smax,
-                                h2, dagg, dden, **kw)
+            (dsd,) = _gat_sweep("dsd", fw_ptr, fw_col, fw_orig, fw_schedule,
+                                sd, ss, smax, h2, dagg, dden, **kw)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dh2, dss = _gat_sweep("dsrc", bw_ptr, bw_col, bw_orig, sd, ss,
-                                  smax, h2, dagg, dden, **kw)
-        return (dsd, dss, dh2) + (None,) * 9
+            dh2, dss = _gat_sweep("dsrc", bw_ptr, bw_col, bw_orig,
+                                  bw_schedule, sd, ss, smax, h2, dagg, dden,
+                                  **kw)
+        return (dsd, dss, dh2) + (None,) * 11

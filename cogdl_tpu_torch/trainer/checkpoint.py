@@ -1,7 +1,8 @@
 """Checkpoint / resume — the port of ``cogdl_tpu/trainer/checkpoint.py``.
 Saves the full training state: the model's ``state_dict``, the optimizer's
-``state_dict`` and the epoch, as host numpy arrays in one pickle written
-atomically."""
+``state_dict``, the epoch and, under ``extra``, what the trainer adds (its
+learning-rate schedule's ``state_dict`` as ``sched_state``), as host numpy
+arrays in one pickle written atomically."""
 
 from __future__ import annotations
 

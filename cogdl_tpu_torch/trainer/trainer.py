@@ -136,6 +136,29 @@ def _snapshot(model, opt, sched):
             None if sched is None else sched.state_dict())
 
 
+def _opt_state_fits(opt, state) -> bool:
+    """Whether a saved optimizer ``state_dict`` fits ``opt``: the same
+    groups with the same hyperparameter names and parameter counts, and every
+    saved per-parameter tensor shaped as its parameter (``load_state_dict``
+    checks only the counts)."""
+    groups = state.get("param_groups", [])
+    if len(groups) != len(opt.param_groups):
+        return False
+    params = {}
+    for saved, mine in zip(groups, opt.param_groups):
+        if set(saved) != set(mine) or len(saved["params"]) != len(
+                mine["params"]):
+            return False
+        params.update(zip(saved["params"], mine["params"]))
+    for i, st in state.get("state", {}).items():
+        if i not in params:
+            return False
+        for v in st.values():
+            if torch.is_tensor(v) and v.ndim and v.shape != params[i].shape:
+                return False
+    return True
+
+
 def _restore(model, opt, sched, snap):
     state, opt_state, sched_state = snap
     model.load_state_dict(state)
@@ -189,8 +212,15 @@ class Trainer:
                 ckpt = None
             if ckpt is not None:
                 model.load_state_dict(to_torch(ckpt["params"]))
-                if ckpt.get("opt_state") is not None:
-                    opt.load_state_dict(to_torch(ckpt["opt_state"]))
+                opt_state = to_torch(ckpt.get("opt_state"))
+                # as the reference (cogdl_tpu/trainer/trainer.py:220-225): a
+                # saved state that does not fit this optimizer is dropped and
+                # the run starts from fresh moments and a fresh schedule
+                if opt_state is not None and _opt_state_fits(opt, opt_state):
+                    opt.load_state_dict(opt_state)
+                    sched_state = ckpt.get("extra", {}).get("sched_state")
+                    if sched is not None and sched_state is not None:
+                        sched.load_state_dict(sched_state)
                 start_epoch = int(ckpt.get("epoch", 0))
 
         batches = wrapper.train_batches(graph)
@@ -208,52 +238,54 @@ class Trainer:
             t_step = time.perf_counter()
             losses = [self.train_step(wrapper, opt, sched, b, generator)
                       for b in batches]
-            if (epoch + 1) % cfg.eval_step != 0:
-                continue
-            # float() waits for the device, so this clock spans the steps
-            train_loss = float(torch.stack(losses).mean())
-            t_eval = time.perf_counter()
-            step_ms.append((t_eval - t_step) * 1e3 / len(batches))
-            if cfg.nan_guard:
-                if not np.isfinite(train_loss):
-                    # consecutive failures only — a recovered blip resets
-                    nan_rollbacks += 1
-                    if nan_rollbacks > cfg.nan_guard_retries:
-                        raise RuntimeError(
-                            f"training diverged: non-finite loss at epoch "
-                            f"{epoch} persisted through "
-                            f"{cfg.nan_guard_retries} rollbacks "
-                            "(lower lr / enable grad_clip)")
-                    _restore(model, opt, sched, best_snap)
-                    print(f"nan_guard: non-finite loss at epoch {epoch}; "
-                          f"rolled back to epoch {best_epoch} snapshot "
-                          f"({nan_rollbacks}/{cfg.nan_guard_retries})")
-                    continue
-                nan_rollbacks = 0
-            metrics = wrapper.evaluate(graph)
-            if monitor not in metrics:
-                raise KeyError(
-                    f"early-stop monitor {monitor!r} not in eval metrics "
-                    f"{sorted(metrics)}")
-            score = float(metrics[monitor]) * sign
-            eval_ms.append((time.perf_counter() - t_eval) * 1e3)
-            if score > best:
-                best = score
-                best_snap = _snapshot(model, opt, sched)
-                best_epoch = epoch
-                patience_left = cfg.patience
-            else:
-                patience_left -= cfg.eval_step
-                if patience_left <= 0:
-                    break
+            if (epoch + 1) % cfg.eval_step == 0:
+                # float() waits for the device, so this clock spans the steps
+                train_loss = float(torch.stack(losses).mean())
+                t_eval = time.perf_counter()
+                step_ms.append((t_eval - t_step) * 1e3 / len(batches))
+                if cfg.nan_guard:
+                    if not np.isfinite(train_loss):
+                        # consecutive failures only — a recovered blip resets
+                        nan_rollbacks += 1
+                        if nan_rollbacks > cfg.nan_guard_retries:
+                            raise RuntimeError(
+                                f"training diverged: non-finite loss at epoch "
+                                f"{epoch} persisted through "
+                                f"{cfg.nan_guard_retries} rollbacks "
+                                "(lower lr / enable grad_clip)")
+                        _restore(model, opt, sched, best_snap)
+                        print(f"nan_guard: non-finite loss at epoch {epoch}; "
+                              f"rolled back to epoch {best_epoch} snapshot "
+                              f"({nan_rollbacks}/{cfg.nan_guard_retries})")
+                        continue
+                    nan_rollbacks = 0
+                metrics = wrapper.evaluate(graph)
+                if monitor not in metrics:
+                    raise KeyError(
+                        f"early-stop monitor {monitor!r} not in eval metrics "
+                        f"{sorted(metrics)}")
+                score = float(metrics[monitor]) * sign
+                eval_ms.append((time.perf_counter() - t_eval) * 1e3)
+                if score > best:
+                    best = score
+                    best_snap = _snapshot(model, opt, sched)
+                    best_epoch = epoch
+                    patience_left = cfg.patience
+                else:
+                    patience_left -= cfg.eval_step
+                    if patience_left <= 0:
+                        break
+            # every 20th epoch whatever eval_step is, the last batch's loss
+            # (cogdl_tpu/trainer/trainer.py:411-413)
             if cfg.progress and epoch % 20 == 0:
-                print(f"epoch {epoch}: loss={train_loss:.4f}")
+                print(f"epoch {epoch}: loss={float(losses[-1]):.4f}")
 
         if cfg.checkpoint_path:
             from .checkpoint import save_checkpoint
 
             save_checkpoint(cfg.checkpoint_path, best_snap[0],
-                            opt_state=best_snap[1], epoch=best_epoch)
+                            opt_state=best_snap[1], epoch=best_epoch,
+                            extra={"sched_state": best_snap[2]})
         _restore(model, opt, sched, best_snap)
         final = wrapper.evaluate(graph)
         result: Dict[str, Any] = {k: float(v) for k, v in final.items()}

@@ -9,6 +9,7 @@ import torch
 
 from cogdl_tpu_torch import bench
 from cogdl_tpu_torch.ops import cache_propagation
+from cogdl_tpu_torch.ops.cuda import SCHEDULE_KEYS
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 
 SMALL = ["--device", "cpu", "--nodes", "2000", "--avg-degree", "10",
@@ -64,6 +65,12 @@ def test_blocked_sizes_its_panels_by_default(capsys):
     assert _run(capsys, "--blocked")["panel_rows"] == 1024
 
 
+def test_blocked_gat_gets_two_panels_by_default(capsys):
+    # fused GAT's structure is sized like K1/K2's: K3 is cut by edges too
+    p = _run(capsys, "--model", "gat", "--blocked", "--attn-drop", "0.5")
+    assert p["panel_rows"] == 1024
+
+
 def test_out_file_holds_the_same_line(capsys, tmp_path):
     out = tmp_path / "bench.json"
     p = _run(capsys, "--no-prop-cache", "--out", str(out))
@@ -98,9 +105,11 @@ def test_blocked_graph_frees_the_raw_edges_and_shares_the_structure():
     assert g.row.numel() == g.col.numel() == g.edge_weight.numel() == 1
     assert g.num_edges == 2000 * 10 + 2000
     ex = g.extras
-    assert sorted(ex) == ["spmm_bw_col", "spmm_bw_ptr", "spmm_fw_col",
-                          "spmm_fw_ptr"]
-    assert ex["spmm_bw_ptr"] is ex["spmm_fw_ptr"]
+    # the structure and the schedule K3 cuts it by, shared by the directions
+    keys = ("ptr", "col") + SCHEDULE_KEYS
+    assert sorted(ex) == sorted(f"spmm_{d}_{k}" for d in ("fw", "bw")
+                                for k in keys)
+    assert all(ex[f"spmm_bw_{k}"] is ex[f"spmm_fw_{k}"] for k in keys)
     assert ex["spmm_fw_ptr"].shape == (4, g.n_pad + 1)
     assert int(ex["spmm_fw_ptr"][-1, -1]) == g.num_edges
 

@@ -48,7 +48,7 @@ SCHEDULE_KEYS = {"chunk_edges", "chunks", "cross_rows", "scratch_rows",
 
 def test_adversarial_phase_rehearsal():
     # one width, the one with two columns a lane
-    report = cs.phase_adversarial(CPU, feats=(47,))
+    report = cs.phase_adversarial(CPU, feats=(47,))   # K3 at every shape
     assert list(report) == ["star", "mixed_rows", "no_edge",
                             "middle_third_unnamed", "powerlaw"]
     assert set(report.values()) == {0.0}   # the plain version on both sides
@@ -81,7 +81,7 @@ def test_adversarial_phase_catches_a_kernel_that_disagrees(monkeypatch):
 
     monkeypatch.setattr(cs.sk, "spmm_csr", off_by_a_little)
     with pytest.raises(AssertionError, match="adversarial structure"):
-        cs.phase_adversarial(CPU, feats=(8,))
+        cs.phase_adversarial(CPU, feats=(8,), gat_shapes=())
 
 
 def test_chunk_sweep_phase_rehearsal():
@@ -156,6 +156,38 @@ def test_gat_kernel_check_phase_rehearsal():
         path, line = e["replaces"].split(":")
         src = open(os.path.join(REPO, path)).read().splitlines()
         assert src[int(line) - 1].startswith("def _gat_pass(")
+        # K3 is cut on K1/K2's schedule: the same fields, and both kernels
+        # timed (the row-a-warp one takes these heads)
+        assert SCHEDULE_KEYS - {"ms_over_library", "structure_s"} | {
+            "kernel", "kernel_ran", "ms_rows", "ms_chunks"} <= set(e)
+        assert e["share_of_bound"] == pytest.approx(e["bound_ms"] / e["ms"])
+        assert e["kernel"] == ("chunks" if e["cross_rows"] else "rows")
+        assert (e["max_row_nnz"] > 128) == (e["cross_rows"] > 0)
+        # no kernel runs on the CPU: what the wrapper ran last, if anything
+        assert e["kernel_ran"] in (None, "rows", "chunks")
+
+
+def test_gat_single_check_catches_a_kernel_that_disagrees(monkeypatch):
+    real = cs.sk.gat_pass
+
+    def drops_a_head(*a, **kw):
+        *outs, keep = real(*a, **kw)
+        return tuple(outs) + (keep * (keep.new_tensor(
+            [0.0] + [1.0] * (keep.shape[1] - 1))),)
+
+    drops_a_head.cuda_kernels, drops_a_head.kernel = 0, None
+    monkeypatch.setattr(cs.sk, "gat_pass", drops_a_head)
+    with pytest.raises(AssertionError, match="keep mask differs"):
+        cs.phase_adversarial(CPU, feats=(8,), gat_shapes=((2, 3),))
+
+
+def test_gat_panel_sweep_phase_rehearsal():
+    rows = cs.phase_gat_panel_sweep(CPU, nodes=2000, avg_degree=10,
+                                    panels=(1, 2, 8), steps=1)
+    assert [(r["panels"], r["kernel"]) for r in rows] == [
+        (1, "K3"), (2, "K3 accumulating"), (8, "K3 accumulating")]
+    assert rows[0]["panel_rows"] == 0 and rows[1]["panel_rows"] == 1024
+    assert all(r["step_ms"] > 0 and r["structure_s"] > 0 for r in rows)
 
 
 def test_gat_autograd_phase_rehearsal():

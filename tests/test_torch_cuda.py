@@ -136,9 +136,11 @@ def test_experiment_on_card_goes_through_kernel(dev):
 
 
 # K3: (H, D) at H·D = 1, 4, 47 and 128, the float4 route (D % 4 == 0) and
-# the scalar one, more columns than one pass over the edges takes (H·D=150,
-# a head across the pass boundary) and the most heads (32)
-GAT_SHAPES = [(1, 1), (4, 1), (1, 4), (1, 47), (8, 16), (3, 50), (32, 2)]
+# the scalar one, more columns than one pass of the chunk kernel takes
+# (H·D=150, a head across the pass boundary), the most heads of the
+# row-a-warp kernel (32), heads in two passes of 32 (64) and the most (128)
+GAT_SHAPES = [(1, 1), (4, 1), (1, 4), (1, 47), (8, 16), (3, 50), (32, 2),
+              (64, 4), (128, 1)]
 
 
 def _gat_case(dev, H, D, seed=0):
@@ -807,3 +809,122 @@ def test_scratch_is_written_only_inside_its_pieces(dev, feat):
             out = spmm_csr(st["ptr"], st["col"], st["w"], x, schedule=sched)
             assert spmm_csr.kernel == "chunks"
             assert _within_terms(out, ref, scale)
+
+
+# -- K3 by edge chunks: the structures that sit on the schedule's edges -------
+
+from cogdl_tpu_torch.ops.cuda.segment_kernels import (  # noqa: E402
+    GAT_KERNELS,
+    GAT_ROWS_MAX_HEADS,
+)
+
+
+def _gat_tables(dev, n, H, D, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h2 = torch.randn(n, H * D, generator=gen, device=dev)
+    ss = torch.randn(n, H, generator=gen, device=dev)
+    return dict(sd=torch.randn(n, H, generator=gen, device=dev), ss=ss,
+                smax=ss.amax(0).contiguous(), h2=h2,
+                dagg=torch.randn(n, H * D, generator=gen, device=dev),
+                dden=torch.randn(n, H, generator=gen, device=dev))
+
+
+def _gat_scale(mode, ptr, idx, orig, t, back, **kw):
+    """Σ|terms| of each output element (every term is a product with
+    ex·slope·keep >= 0)."""
+    return gat_pass_reference(mode, ptr, idx, orig, t["sd"], t["ss"],
+                              t["smax"], t["h2"].abs(),
+                              *(b.abs() for b in back), **kw)
+
+
+@pytest.mark.parametrize("H,D", [(8, 16), (1, 47), (64, 4)])
+@pytest.mark.parametrize("direction", ["fw", "bw"])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_k3_on_adversarial_structures(dev, name, direction, H, D):
+    """Every mode, attention dropout 0 and 0.6: single-shot with the kernel
+    the wrapper chooses and each by name, then accumulating over three
+    panels from a non-zero accumulator; within Σ|terms|, keep masks, two
+    calls and both schedules bit for bit, rows without an edge zero (single
+    shot) or untouched (accumulating)."""
+    st, sched, n = _adversarial(dev, name, direction)
+    row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (st["ptr"][1:] - st["ptr"][:-1]).long())
+    orig = torch.randperm(row.numel(), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1)
+                          ).int()
+    pan, psched, _ = _adversarial(dev, name, direction,
+                                  panel_rows=n_third(dev))
+    seed = torch.tensor([4321], device=dev)
+    empty = st["ptr"][1:] == st["ptr"][:-1]
+    kernels = [k for k in GAT_KERNELS if k != "rows" or H <= GAT_ROWS_MAX_HEADS]
+    for mode in ("fwd", "dsd", "dsrc"):
+        t = _gat_tables(dev, n, H, D)
+        back = () if mode == "fwd" else (t["dagg"], t["dden"])
+        args = (mode, st["ptr"], st["col"], orig, t["sd"], t["ss"], t["smax"],
+                t["h2"], *back)
+        for drop in (0.0, 0.6):
+            kw = dict(alpha=0.2, attn_drop=drop, seed=seed, with_keep=True)
+            *refs, keep_ref = gat_pass_reference(*args, **kw)
+            *scale, _ = _gat_scale(*args[:4], t, back, **kw)
+            first = gat_pass(*args, schedule=sched, **kw)
+            runs = [first] + [gat_pass(*args, schedule=sched, kernel=k, **kw)
+                              for k in kernels]
+            torch.cuda.synchronize()
+            for *outs, keep in runs:
+                assert torch.equal(keep, keep_ref)
+                assert all(_within_terms(o, r, sc)
+                           for o, r, sc in zip(outs, refs, scale))
+                assert all((o[empty] == 0).all() for o in outs)
+            for again in (gat_pass(*args, schedule=sched, **kw),
+                          gat_pass(*args, **kw)):
+                assert all(torch.equal(a, b) for a, b in zip(first, again))
+            # accumulating, coordinate key
+            kwa = dict(alpha=0.2, attn_drop=drop, seed=seed, coord_key=True)
+            acc0 = tuple(torch.randn(n, w, device=dev)
+                         for w in gat_output_widths(mode, H, H * D))
+            results = []
+            for prepared in (True, True, False):
+                acc, ref = (tuple(a.clone() for a in acc0) for _ in range(2))
+                scale = tuple(a.abs() for a in acc0)
+                for p, ptr in enumerate(pan["ptr"]):
+                    untouched = ptr[1:] == ptr[:-1]
+                    before = [a[untouched].clone() for a in acc]
+                    pargs = (mode, ptr, pan["col"], None, t["sd"], t["ss"],
+                             t["smax"], t["h2"], *back)
+                    gat_pass(*pargs, acc=acc, schedule=psched.panel(p)
+                             if prepared else None, **kwa)
+                    assert all(torch.equal(a[untouched], b)
+                               for a, b in zip(acc, before))
+                    gat_pass_reference(*pargs, acc=ref, **kwa)
+                    _gat_scale(*pargs[:4], t, back, acc=scale, **kwa)
+                assert all(_within_terms(o, r, sc)
+                           for o, r, sc in zip(acc, ref, scale))
+                results.append(acc)
+            assert all(torch.equal(a, b) for other in results[1:]
+                       for a, b in zip(results[0], other))
+
+
+def test_k3_chooses_its_kernel_by_the_longest_row(dev):
+    """No row longer than a chunk and at most 32 heads: the row-a-warp
+    kernel, one CUDA kernel a call. A cut row: the chunk kernel and the
+    cross kernel (two for the modes with a vector output). 64 heads: the
+    chunk kernel in two passes."""
+    star, ssched, n = _adversarial(dev, "star", "fw")
+    flat, fsched, _ = _adversarial(dev, "star", "bw")
+    assert ssched.cross.shape[0] == 1 and fsched.cross.shape[0] == 0
+    orig = torch.arange(star["col"].numel(), device=dev, dtype=torch.int32)
+    for (st, sched), H, kernel, counts in (
+            ((flat, fsched), 8, "rows", (1, 1, 1)),
+            ((star, ssched), 8, "chunks", (3, 2, 3)),
+            ((flat, fsched), 64, "chunks", (2, 2, 2))):
+        t = _gat_tables(dev, n, H, 4)
+        for mode, want in zip(("fwd", "dsd", "dsrc"), counts):
+            back = () if mode == "fwd" else (t["dagg"], t["dden"])
+            gat_pass(mode, st["ptr"], st["col"], orig, t["sd"], t["ss"],
+                     t["smax"], t["h2"], *back, alpha=0.2, schedule=sched)
+            assert gat_pass.kernel == kernel
+            assert gat_pass.cuda_kernels == want, (mode, H)
+    with pytest.raises(ValueError, match="1 <= H <= 32"):
+        gat_pass("fwd", star["ptr"], star["col"], orig, t["sd"], t["ss"],
+                 t["smax"], t["h2"], alpha=0.2, schedule=ssched,
+                 kernel="rows")

@@ -7,6 +7,7 @@ against ``gat_fused_p`` over its blocked layouts, and the port's own
 The JAX side runs its kernels in Pallas interpret mode with tiny mega-blocks
 (``block_chunks=2``), as its own tests do."""
 
+import itertools
 import types
 
 import jax
@@ -316,8 +317,10 @@ def test_gat_structure_stores_no_orig_with_panels_and_orig_without(prepped):
     _, gt, _ = prepped
     panels = prepare_spmm_device(gt, symmetric=True, with_orig=True,
                                  panel_rows=PANEL_ROWS)
-    assert sorted(panels.extras) == ["spmm_bw_col", "spmm_bw_ptr",
-                                     "spmm_fw_col", "spmm_fw_ptr"]
+    # the structure and its schedule, no weights and no orig
+    assert sorted(panels.extras) == sorted(
+        f"spmm_{d}_{k}" for d in ("fw", "bw")
+        for k in ("ptr", "col") + SCHEDULE_KEYS)
     single = prepare_spmm_device(gt, symmetric=True, with_orig=True,
                                  panel_rows=0)
     ex = single.extras
@@ -801,16 +804,16 @@ def test_scratch_holds_one_row_a_piece_of_a_cut_row(name, chunk):
 
 
 def test_default_panels_of_a_device_prepared_graph(prepped):
-    """No height named: the structure K1/K2 read gets ``SPMM_PANELS``
-    panels whatever the graph's size, the structure of fused GAT the panels
-    of ``default_panel_rows`` (none for a table this small)."""
+    """No height named: the structure K1/K2 read and the structure of fused
+    GAT get ``SPMM_PANELS`` panels alike, whatever the graph's size (no
+    table size of the port's default goes by ``default_panel_rows``)."""
     _, gt, _ = prepped
-    g = prepare_spmm_device(gt, symmetric=True)
-    assert g.extras["spmm_fw_ptr"].shape == (SPMM_PANELS, gt.n_pad + 1)
-    assert g.meta_get("spmm_panel_rows") == -(-gt.n_pad // SPMM_PANELS)
-    gat = prepare_spmm_device(gt, symmetric=True, with_orig=True)
-    assert gat.meta_get("spmm_panel_rows") == default_panel_rows(gt.n_pad) == 0
-    assert gat.extras["spmm_fw_ptr"].ndim == 1
+    for kw in ({}, {"with_orig": True}):
+        g = prepare_spmm_device(gt, symmetric=True, **kw)
+        assert g.extras["spmm_fw_ptr"].shape == (SPMM_PANELS, gt.n_pad + 1)
+        assert g.meta_get("spmm_panel_rows") == -(-gt.n_pad // SPMM_PANELS)
+    assert default_panel_rows(gt.n_pad) == 0
+    assert not any(k.endswith("_orig") for k in g.extras)
 
 
 def test_symmetric_structure_shares_its_schedule(prepped):
@@ -907,3 +910,118 @@ def test_k1_wrapper_refuses_an_unknown_kernel_name(prepped):
     for kernel in K1_KERNELS:
         assert torch.equal(spmm_csr(*args, kernel=kernel),
                            spmm_csr_reference(*args))
+
+
+# -- K3 on the chunk schedule ---------------------------------------------------
+
+from cogdl_tpu_torch.ops.cuda import gat_pass_chunked_reference  # noqa: E402
+from cogdl_tpu_torch.ops.cuda.segment_kernels import (  # noqa: E402
+    GAT_MODES,
+    gat_pass_reference,
+)
+
+
+def _gat_tables(n, H, D, rng):
+    f = lambda *shape: _t(rng.normal(size=shape).astype(np.float32))  # noqa
+    ss = f(n, H)
+    return dict(sd=f(n, H), ss=ss, smax=ss.amax(0), h2=f(n, H * D),
+                dagg=f(n, H * D), dden=f(n, H))
+
+
+def _gat_scale(mode, ptr, idx, orig, t, back, **kw):
+    """Σ|terms| of each output element: every term is a product with
+    ex·slope·keep >= 0, so the plain pass over |tables| sums them."""
+    return gat_pass_reference(mode, ptr, idx, orig, t["sd"], t["ss"],
+                              t["smax"], t["h2"].abs(),
+                              *(b.abs() for b in back), **kw)
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_chunked_gat_plain_version_matches_plain_version(name, chunk):
+    """K3 cut the way the chunk kernel cuts it (rows inside a chunk summed
+    at once, cut rows in pieces whose dots are taken before they are
+    stored, the pieces added in order) against the plain version, on the
+    adversarial structures at 4 and 8 edges a chunk, both directions,
+    every mode, attention dropout 0 and 0.6: single-shot, and over three
+    panels from a non-zero accumulator. Each element within the card
+    run's tolerance, keep masks and the rows without an edge bit for
+    bit."""
+    row, col, n = _adversarial(name, chunk)
+    rng = np.random.default_rng(4)
+    seed = torch.tensor([777], dtype=torch.int64)
+    for r, c in ((row, col), (col, row)):
+        one = build_spmm_structure(r, c, None, n, 0, with_orig=True,
+                                   chunk_edges=chunk)
+        pan = build_spmm_structure(r, c, None, n, -(-n // 3),
+                                   chunk_edges=chunk)
+        s_one, s_pan = (SpmmSchedule(*(st[k] for k in SCHEDULE_KEYS))
+                        for st in (one, pan))
+        for mode, drop, (H, D) in itertools.product(
+                GAT_MODES, (0.0, 0.6), ((2, 4), (1, 5))):
+            t = _gat_tables(n, H, D, rng)
+            back = () if mode == "fwd" else (t["dagg"], t["dden"])
+            args = (mode, one["ptr"], one["col"], one["orig"], t["sd"],
+                    t["ss"], t["smax"], t["h2"], *back)
+            kw = dict(alpha=0.2, attn_drop=drop, seed=seed, with_keep=True)
+            *got, keep = gat_pass_chunked_reference(*args, schedule=s_one,
+                                                    **kw)
+            *want, keep_ref = gat_pass_reference(*args, **kw)
+            *scale, _ = _gat_scale(*args[:4], t, back, **kw)
+            assert torch.equal(keep, keep_ref)
+            for o, w, sc in zip(got, want, scale):
+                _assert_within_terms(o, w, sc)
+            kwa = dict(alpha=0.2, attn_drop=drop, seed=seed, coord_key=True,
+                       with_keep=True)
+            acc0 = tuple(_t(rng.normal(size=(n, w)).astype(np.float32))
+                         for w in gat_output_widths(mode, H, H * D))
+            acc, ref = (tuple(a.clone() for a in acc0) for _ in range(2))
+            scale = tuple(a.abs() for a in acc0)
+            for p, ptr in enumerate(pan["ptr"]):
+                untouched = ptr[1:] == ptr[:-1]
+                before = [a[untouched].clone() for a in acc]
+                pargs = (mode, ptr, pan["col"], None, t["sd"], t["ss"],
+                         t["smax"], t["h2"], *back)
+                *_, keep = gat_pass_chunked_reference(
+                    *pargs, schedule=s_pan.panel(p), acc=acc, **kwa)
+                *_, keep_ref = gat_pass_reference(*pargs, acc=ref, **kwa)
+                _gat_scale(*pargs[:4], t, back, acc=scale, **kwa)
+                assert torch.equal(keep, keep_ref)
+                assert all(torch.equal(a[untouched], b)
+                           for a, b in zip(acc, before))
+            for o, w, sc in zip(acc, ref, scale):
+                _assert_within_terms(o, w, sc)
+
+
+def test_chunked_gat_plain_version_refuses_a_schedule_of_another_structure():
+    row, col, n = _adversarial("mixed_rows", 8)
+    st_ = build_spmm_structure(row, col, None, n, 0, with_orig=True,
+                               chunk_edges=8)
+    other = build_spmm_structure(col, row, None, n, 0, chunk_edges=8)
+    t = _gat_tables(n, 1, 3, np.random.default_rng(0))
+    with pytest.raises(AssertionError, match="schedule"):
+        gat_pass_chunked_reference(
+            "fwd", st_["ptr"], st_["col"], None, t["sd"], t["ss"], t["smax"],
+            t["h2"], alpha=0.2,
+            schedule=SpmmSchedule(*(other[k] for k in SCHEDULE_KEYS)))
+
+
+@pytest.mark.parametrize("panel_rows", [0, PANEL_ROWS])
+def test_gat_structure_carries_the_weighted_builds_schedule(prepped,
+                                                            panel_rows):
+    """A ``with_orig`` structure (fused GAT, no weights) carries the
+    schedule that the weighted build of the same edges carries, in both
+    directions; under ``symmetric`` the directions share it as they share
+    ``ptr``."""
+    _, gt, _ = prepped
+    gat = prepare_spmm_device(gt, with_orig=True, panel_rows=panel_rows)
+    gcn = prepare_spmm_device(gt, panel_rows=panel_rows)
+    for d in ("fw", "bw"):
+        assert f"spmm_{d}_w" not in gat.extras
+        for k in SCHEDULE_KEYS:
+            assert torch.equal(gat.extras[f"spmm_{d}_{k}"],
+                               gcn.extras[f"spmm_{d}_{k}"]), (d, k)
+    sym = prepare_spmm_device(gt, symmetric=True, with_orig=True,
+                              panel_rows=panel_rows).extras
+    for k in ("ptr",) + SCHEDULE_KEYS:
+        assert sym[f"spmm_bw_{k}"] is sym[f"spmm_fw_{k}"]

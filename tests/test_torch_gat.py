@@ -26,8 +26,11 @@ from cogdl_tpu_torch.datasets.synthetic import sbm_graph as t_sbm
 from cogdl_tpu_torch.layers import GATLayer
 from cogdl_tpu_torch.models import build_model, load_jax_params
 from cogdl_tpu_torch.ops.cuda import (
+    GAT_MAX_HEADS,
     GATFusedFunction,
+    build_spmm_schedule,
     gat_pass,
+    gat_pass_chunked_reference,
     gat_pass_reference,
     maybe_cuda_gat_fused,
     prepare_spmm,
@@ -190,6 +193,88 @@ def test_plain_k3_matches_pallas_gat_fused(graphs, H, D, attn_drop):
                                    atol=GRAD_ATOL, err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def hub_graphs():
+    """A 200-node graph with a star hub, in both packages with their kernel
+    structures: node 0 is the destination of 40 edges and the source of 40
+    more, besides 600 random edges and the self loops, so that its row of
+    the CSR and its column (the CSC's row) hold more than 2T + 1 = 17 edges
+    at T = 8 and are cut into three chunks or more."""
+    n = 200
+    rng = np.random.default_rng(9)
+    hub = np.arange(1, 41)
+    row = np.concatenate([rng.integers(0, n, 600), np.zeros(40, np.int64),
+                          hub, np.arange(n)])
+    col = np.concatenate([rng.integers(0, n, 600), hub,
+                          np.zeros(40, np.int64), np.arange(n)])
+    ei = np.stack([row, col])
+    gj = jg.from_coo(ei, num_nodes=n, coalesce=True)
+    gt = tg.from_coo(ei, num_nodes=n, coalesce=True)
+    E = gt.num_edges
+    np.testing.assert_array_equal(np.asarray(gj.row)[:E], _np(gt.row)[:E])
+    np.testing.assert_array_equal(np.asarray(gj.col)[:E], _np(gt.col)[:E])
+    return gj, j_prepare_spmm(gj), gt, prepare_spmm(gt)
+
+
+HUB_CHUNK = 8
+
+
+@pytest.mark.parametrize("attn_drop", [0.0, 0.5])
+@pytest.mark.parametrize("H,D", [(4, 8), (1, 5)])
+def test_chunked_k3_matches_pallas_gat_fused_on_a_hub(hub_graphs, H, D,
+                                                      attn_drop):
+    """Forward and the grads of sd, ss and h2 through GATFusedFunction on
+    CPU tensors (the plain K3) and through the plain version cut the way
+    the chunk kernel cuts it at T = 8 (the hub row and column in pieces,
+    each piece's dots taken before it is stored), against gat_fused in
+    interpret mode, with the same weights and the same keep masks."""
+    _, pj, gt, pt = hub_graphs
+    seed = 24680
+    sd, ss, h, a_src, probe = _k3_inputs(gt, pj.n_pad, H, D)
+    ref = _jax_gat_fused(pj, H, D, attn_drop, seed, sd, ss, h, a_src, probe)
+    n, m = gt.n_pad, gt.num_nodes
+    ex = pt.extras
+    keys = [ex[f"spmm_{d}_{k}"] for d in ("fw", "bw")
+            for k in ("ptr", "col", "orig")]
+    scheds = [build_spmm_schedule(ex[f"spmm_{d}_ptr"], HUB_CHUNK,
+                                  ex[f"spmm_{d}_erow"]) for d in ("fw", "bw")]
+    # the hub is cut in both directions
+    assert all(int(sc.cross[0, 0]) == 0 and int(sc.cross[0, 2])
+               - int(sc.cross[0, 1]) >= 2 for sc in scheds)
+    ins = [torch.from_numpy(a[:n]).requires_grad_(True)
+           for a in (sd, ss, h.reshape(-1, H * D))]
+    drop_seed = torch.tensor([seed]) if attn_drop else None
+    out = GATFusedFunction.apply(*ins, *keys, drop_seed, ALPHA, attn_drop,
+                                 *scheds)
+    g = torch.from_numpy(probe[:n])
+    (out * g).sum().backward()
+    fused = [out.detach()] + [t.grad for t in ins]
+    # the same VJP through the chunked plain version
+    sd_t, ss_t, h2_t = (t.detach() for t in ins)
+    smax = ss_t.amax(0)
+    kw = dict(alpha=ALPHA, attn_drop=attn_drop, seed=drop_seed)
+    num, den = gat_pass_chunked_reference(
+        "fwd", *keys[:3], sd_t, ss_t, smax, h2_t, schedule=scheds[0], **kw)
+    den = den.clamp_min(1e-16)
+    o = (num.view(n, H, D) / den[:, :, None]).view(n, -1)
+    dagg = (g.view(n, H, D) / den[:, :, None]).reshape(n, -1)
+    dden = -(g.view(n, H, D) * o.view(n, H, D)).sum(2) / den
+    (dsd,) = gat_pass_chunked_reference("dsd", *keys[:3], sd_t, ss_t, smax,
+                                        h2_t, dagg, dden, schedule=scheds[0],
+                                        **kw)
+    dh2, dss = gat_pass_chunked_reference("dsrc", *keys[3:], sd_t, ss_t,
+                                          smax, h2_t, dagg, dden,
+                                          schedule=scheds[1], **kw)
+    for route, got in (("fused", fused), ("chunked", [o, dsd, dss, dh2])):
+        np.testing.assert_allclose(_np(got[0])[:m], ref[0][:m],
+                                   rtol=FWD_RTOL, atol=FWD_ATOL,
+                                   err_msg=route)
+        for name, t, r in zip(("dsd", "dss", "dh"), got[1:], ref[1:]):
+            np.testing.assert_allclose(_np(t)[:m], r[:m], rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL,
+                                       err_msg=f"{route} {name}")
+
+
 def test_keep_masks_agree_across_directions(graphs):
     """The CSR and CSC passes key the hash on the edge's position in the
     edge list, so both directions see the same mask per edge."""
@@ -231,9 +316,10 @@ def test_gat_fused_dispatch_on_cpu(graphs):
     s = torch.zeros(gt.n_pad, 2)
     assert maybe_cuda_gat_fused(gt, s, s, h) is None
     assert maybe_cuda_gat_fused(pt, s, s, h).shape == (gt.n_pad, 2, 3)
-    with pytest.raises(ValueError, match="at most 32 heads"):
-        maybe_cuda_gat_fused(pt, torch.zeros(gt.n_pad, 33),
-                             torch.zeros(gt.n_pad, 33), torch.zeros(gt.n_pad, 33, 1))
+    H = GAT_MAX_HEADS + 1
+    with pytest.raises(ValueError, match=f"at most {GAT_MAX_HEADS} heads"):
+        maybe_cuda_gat_fused(pt, torch.zeros(gt.n_pad, H),
+                             torch.zeros(gt.n_pad, H), torch.zeros(gt.n_pad, H, 1))
     with pytest.raises(ValueError, match="mode"):
         gat_pass("bwd", *(pt.extras[k] for k in ("spmm_fw_ptr", "spmm_fw_col",
                                                   "spmm_fw_orig")),
@@ -400,7 +486,12 @@ def test_fused_route_with_attention_dropout_trains_deterministically(graphs):
 
 
 def test_experiment_trains_gat_on_cpu():
-    res = experiment(dataset="sbm", model="gat", epochs=100, seed=[0, 1],
-                     device="cpu")
-    (runs,) = res.values()
-    assert float(np.mean([r["test_acc"] for r in runs])) >= 0.95
+    """A smoke run through experiment(): the loss is finite and falls from
+    the first epochs to the sixth on one seed (the quality run over 100
+    epochs is chip_smoke.py's, rehearsed in test_torch_chip_smoke.py)."""
+    losses = []
+    for epochs in (2, 6):
+        (runs,) = experiment(dataset="sbm", model="gat", epochs=epochs,
+                             seed=0, device="cpu").values()
+        losses.append(runs[0]["train_loss"])
+    assert np.isfinite(losses).all() and losses[1] < losses[0]

@@ -167,6 +167,108 @@ def test_checkpoint_save_and_resume(raw_graphs, tmp_path):
     assert res2["val_acc"] == pytest.approx(res["val_acc"])
 
 
+class _ScriptedWrapper(NodeClfWrapper):
+    """``val_acc`` rises over the first five evaluations and then drops, so
+    the best epoch is 4 and ``patience=2`` stops the run after epoch 6."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.evals = 0
+
+    def evaluate(self, graph):
+        metrics = super().evaluate(graph)
+        self.evals += 1
+        return {**metrics, "val_acc": float(self.evals if self.evals <= 5
+                                            else 0)}
+
+
+class _LrTrainer(Trainer):
+    """Records the learning rate of every optimizer step."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.lrs = []
+
+    def train_step(self, wrapper, optimizer, scheduler, graph, generator):
+        self.lrs.append(optimizer.param_groups[0]["lr"])
+        return super().train_step(wrapper, optimizer, scheduler, graph,
+                                  generator)
+
+
+def test_resume_continues_the_lr_schedule(raw_graphs, tmp_path):
+    """A run stopped at its best epoch 4 and resumed from its checkpoint
+    steps on with the learning rates of the uninterrupted run, as the
+    reference's restored optax count does (F1): steps 5, 6, ... of the
+    schedule, not 0, 1, ...."""
+    _, gt_raw = raw_graphs
+    path = str(tmp_path / "gcn.pkl")
+    kw = dict(device="cpu", epochs=10, lr=0.1, lr_schedule="linear")
+    whole = _LrTrainer(TrainerConfig(**kw))
+    whole.run(NodeClfWrapper(build_model("gcn", **MODEL_KW)), gt_raw)
+    first = _LrTrainer(TrainerConfig(patience=2, checkpoint_path=path, **kw))
+    res = first.run(_ScriptedWrapper(build_model("gcn", **MODEL_KW)), gt_raw)
+    assert res["best_epoch"] == 4 and len(first.lrs) == 7
+    assert load_checkpoint(path)["extra"]["sched_state"]["last_epoch"] == 5
+    resumed = _LrTrainer(TrainerConfig(checkpoint_path=path,
+                                       resume_training=True, **kw))
+    resumed.run(NodeClfWrapper(build_model("gcn", **MODEL_KW)), gt_raw)
+    factor = _schedule_factor(TrainerConfig(**kw))
+    assert whole.lrs == pytest.approx([0.1 * factor(s) for s in range(10)])
+    assert len(resumed.lrs) == 10 - 4
+    assert resumed.lrs == pytest.approx([0.1 * factor(s)
+                                         for s in range(5, 11)])
+    assert resumed.lrs[:5] == pytest.approx(whole.lrs[5:])
+
+
+def test_resume_drops_an_optimizer_state_that_does_not_fit(raw_graphs,
+                                                           tmp_path):
+    """An Adam state resumed into SGD, or into Adam over other shapes, is
+    dropped for a fresh state and a fresh schedule, as the reference falls
+    back (F1); the port's ``load_state_dict`` alone would take it and fail
+    at the first step."""
+    _, gt_raw = raw_graphs
+    path = str(tmp_path / "gcn.pkl")
+    kw = dict(device="cpu", epochs=6, lr=0.1, lr_schedule="linear",
+              checkpoint_path=path)
+    Trainer(TrainerConfig(**kw)).run(
+        NodeClfWrapper(build_model("gcn", **MODEL_KW)), gt_raw)
+    model = build_model("gcn", **MODEL_KW)
+    sgd, _ = build_optimizer(TrainerConfig(optimizer="sgd", **kw),
+                             model.parameters())
+    saved = load_checkpoint(path)["opt_state"]
+    from cogdl_tpu_torch.trainer.checkpoint import to_torch
+    from cogdl_tpu_torch.trainer.trainer import _opt_state_fits
+
+    adam, _ = build_optimizer(TrainerConfig(**kw), model.parameters())
+    assert _opt_state_fits(adam, to_torch(saved))
+    assert not _opt_state_fits(sgd, to_torch(saved))
+    wide = build_model("gcn", **{**MODEL_KW, "hidden_size": 13})
+    assert not _opt_state_fits(
+        build_optimizer(TrainerConfig(**kw), wide.parameters())[0],
+        to_torch(saved))
+    trainer = _LrTrainer(TrainerConfig(optimizer="sgd", resume_training=True,
+                                       **kw))
+    res = trainer.run(NodeClfWrapper(model), gt_raw)
+    assert np.isfinite(res["train_loss"])
+    assert trainer.lrs[0] == pytest.approx(0.1)
+
+
+@pytest.mark.parametrize("eval_step", [1, 7])
+def test_progress_prints_every_20th_epoch(raw_graphs, capsys, eval_step):
+    """``progress=True`` prints epochs 0, 20, 40 whatever ``eval_step`` is,
+    with the last batch's loss, as the reference does (F2)."""
+    _, gt_raw = raw_graphs
+    res = Trainer(TrainerConfig(device="cpu", epochs=41, progress=True,
+                                eval_step=eval_step, patience=100)).run(
+        NodeClfWrapper(build_model("gcn", **MODEL_KW)), gt_raw)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("epoch ")]
+    assert [ln.split(":")[0] for ln in lines] == ["epoch 0", "epoch 20",
+                                                  "epoch 40"]
+    assert all(np.isfinite(float(ln.split("loss=")[1])) for ln in lines)
+    assert np.isfinite(res["train_loss"])
+
+
 @pytest.mark.parametrize("option", [{"bf16": True}, {"attack": "fgsm"},
                                     {"profile_dir": "x"},
                                     {"activation_compression": True},
