@@ -17,7 +17,11 @@ also held against their plain versions on structures that sit on the chunk
 schedule's edges (a star, rows of exactly one chunk more or less, no edge
 at all), and K1/K2's chunk size is swept. Then
 the gather probes (K4, K5 and K6 against their plain versions at the sizes of
-``cogdl_tpu_torch.scripts.microbench_gather``, and every stage of that
+``cogdl_tpu_torch.scripts.microbench_gather``, warm and with a cold L2; K4
+and K5, which serve every chunk of a window from one staging, also on
+adversarial shapes (uneven window groups, chunks of 1 to 4096 slots,
+windows of 1 to 4096 rows, clamped indices) with every kernel they may
+run, and swept over tile widths and carve-outs; every stage of that
 script with exact launch counts) and full-batch GraphSAGE through
 ``experiment()``. Prints one JSON line of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
@@ -94,6 +98,17 @@ GAT_PARITY_NODES = 20_000
 # Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# shared memory / L1 reads: 32 banks x 4 B a clock on each of 132 SMs at the
+# 1.98 GHz boost clock; what a gather probe that reads every slot's row out
+# of on-chip memory needs at the least
+ONCHIP_BYTES_PER_S = 132 * 128 * 1.98e9
+# the write between two launches of a cold-L2 time: more than the 50 MB L2
+COLD_FLUSH_BYTES = 64 * 2 ** 20
+# The gather probes' `ms` is the median over this many copies of the table,
+# each at its own addresses and timed after its own warm-up: a copy's warm
+# time follows which of its rows the L2 keeps (K6 reads 44 MB of a 51 MB
+# table through a 50 MB L2), so one copy's time is not a stable figure.
+GATHER_TIMING_TABLES = 5
 
 # K1 against its plain version: both are fp32 and differ only in summation
 # order, whose error grows with the magnitude of the terms summed, so the
@@ -119,6 +134,12 @@ GATHER_WINDOW_SOURCE = "cogdl_tpu_torch/csrc/gather_window.cu"
 GATHER_WINDOW_REPLACES = "scripts/microbench_gather7.py:111"
 GATHER_ROWS_SOURCE = "cogdl_tpu_torch/csrc/gather_rows_async.cu"
 GATHER_ROWS_REPLACES = "scripts/microbench_gather7.py:165"
+# the gather probes' adversarial shapes: windows (K5) and chunk sizes (K4's
+# block height too), whole windows in a table of WINDOWS_IN_TABLE windows
+# and 77 rows more
+GATHER_ADV_WINDOWS = (1, 32, 256, 1024, 4096)
+GATHER_ADV_CHUNKS = (1, 31, 1024, 4096)
+WINDOWS_IN_TABLE = 3
 # GraphSAGE's short run with the "sum" aggregator (the K1 count) and the
 # aggregators whose card logits are held against the CPU's
 SAGE_SUM_EPOCHS = 30
@@ -1431,13 +1452,18 @@ def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
     ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``; K3's keep masks bit-equal; two
     calls on the same inputs equal bit for bit; the prepared schedule and
     the one the wrapper builds equal bit for bit. Returns the largest error
-    over tolerance per structure."""
+    over tolerance per structure; the printed line also names the check
+    each structure's largest error came from."""
     gen = torch.Generator(device=device).manual_seed(12)
     seed = torch.tensor([55555], dtype=torch.int64, device=device)
-    report = {}
+    report, worst_at = {}, {}
     for name, row, col, n in adversarial_structures(device):
         wts = torch.randn(row.numel(), generator=gen, device=device)
-        worst = 0.0
+        worst = [0.0, None]     # largest error over tolerance, its check
+
+        def note(err, check, worst=worst):
+            if err > worst[0]:
+                worst[:] = [err, check]
         for structure, (r, c) in (("csr", (row, col)), ("csc", (col, row))):
             one = build_spmm_structure(r, c, wts, n, with_orig=True)
             pan = build_spmm_structure(r, c, wts, n,
@@ -1459,14 +1485,16 @@ def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
                 for kernel in sk.K1_KERNELS:
                     named = [sk.spmm_csr(*args, schedule=s_one, kernel=kernel)
                              for _ in range(2)]
-                    worst = max(worst, scaled_err(named[0], ref, scale))
+                    note(scaled_err(named[0], ref, scale),
+                         f"spmm_csr[{structure},F={feat},{kernel}]")
                     same = same and torch.equal(*named)
-                worst = max(worst, scaled_err(out, ref, scale))
+                note(scaled_err(out, ref, scale),
+                     f"spmm_csr[{structure},F={feat}]")
                 acc0 = torch.randn(n, feat, generator=gen, device=device)
                 accs = [accum_check(pan["ptr"], pan["col"], pan["w"], x, acc0,
                                     structure, device, sched)
                         for sched in (s_pan, s_pan, None)]
-                worst = max(worst, accs[0][1])
+                note(accs[0][1], f"spmm_csr_accum[{structure},F={feat}]")
                 same = same and all(torch.equal(accs[0][0], a[0])
                                     for a in accs[1:])
                 if not same:
@@ -1485,7 +1513,7 @@ def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
                 err, *_ = gat_single_check(
                     tag, (mode, one["ptr"], one["col"], one["orig"], t["sd"],
                           t["ss"], t["smax"], t["h2"]), back, s_one, seed)
-                worst = max(worst, err)
+                note(err, tag)
                 acc0 = tuple(torch.randn(n, wd, generator=gen, device=device)
                              for wd in sk.gat_output_widths(
                                  mode, heads, heads * head_dim))
@@ -1494,16 +1522,16 @@ def phase_adversarial(device: torch.device, feats=ADVERSARIAL_FEATS,
                                             drop, seed, gen, device, True,
                                             sched=sched, acc0=acc0)
                             for sched in (s_pan, s_pan, None)]
-                    worst = max(worst, accs[0][1])
+                    note(accs[0][1], f"{tag} accumulating, drop {drop}")
                     if not all(torch.equal(a, b) for other in accs[1:]
                                for a, b in zip(accs[0][0], other[0])):
                         raise AssertionError(
                             f"{tag}: accumulating, a second sweep, or one on "
                             f"the schedule the wrapper builds, gave other "
                             f"bits at drop {drop}")
-        report[name] = worst
+        report[name], worst_at[name] = worst
     print(f"[adversarial] chunk_edges={CHUNK_EDGES} err/tol "
-          f"{json.dumps(report)}")
+          f"{json.dumps(report)} largest at {json.dumps(worst_at)}")
     if not max(report.values()) <= 1.0:
         raise AssertionError(f"K1/K2/K3 disagree with their plain versions "
                              f"on an adversarial structure: {report}")
@@ -1590,24 +1618,62 @@ def gather_bound_ms(distinct_rows: int, n_idx: int, n_chunks: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def gather_onchip_bound_ms(n_idx: int) -> float:
+    """Least time for the ``n_idx`` gathered rows (512 B each) to be read
+    out of on-chip memory once: what K4 and K5, which serve every slot from
+    shared memory or L1, need at the least. Recorded beside ``bound_ms``,
+    which stays the bytes bound."""
+    return 512.0 * n_idx / ONCHIP_BYTES_PER_S * 1e3
+
+
+def time_cold_ms(fn, device: torch.device, iters: int = 10) -> float:
+    """Mean milliseconds of ``fn`` with a cold L2: a write of
+    ``COLD_FLUSH_BYTES`` before each call, CUDA events around the call
+    only (the host clock on the CPU, rehearsal only)."""
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    fn()
+    if device.type == "cuda":
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in events:
+            flush.fill_(1.0)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize(device)
+        return sum(a.elapsed_time(b) for a, b in events) / iters
+    total = 0.0
+    for _ in range(iters):
+        flush.fill_(1.0)
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    return total * 1e3 / iters
+
+
 def gather_cases(rows: int, gathered: int):
     """One case per gather kernel and size the probe script runs:
     ``(name, stage, source, replaces, entries of idx, index range, kernel,
-    plain version, slot -> table row)``, the last three functions of
+    plain version, slot -> table row, wrapper, (tile_cols, segments) of
+    its cut or None)``, the kernel, plain version and slot map functions of
     ``(table, idx)``."""
     chunk = mg.T
+    n_chunks = gathered // chunk
     cases = [(f"gather_block_sum[T={chunk}]", "B", GATHER_BLOCK_SOURCE,
               GATHER_BLOCK_REPLACES, gathered, chunk,
               lambda t, i: gk.gather_block_sum(t, i, chunk),
               lambda t, i: gk.gather_block_sum_reference(t, i, chunk),
-              lambda t, i: gk.window_rows(i, t.shape[0], chunk, chunk))]
+              lambda t, i: gk.window_rows(i, t.shape[0], chunk, chunk),
+              gk.gather_block_sum, gk.block_plan(rows, n_chunks, chunk))]
     for w in mg.WINDOWS:
         cases.append((
             f"gather_window_sum[W={w}]", f"C{w}", GATHER_WINDOW_SOURCE,
             GATHER_WINDOW_REPLACES, gathered, w,
             lambda t, i, w=w: gk.gather_window_sum(t, i, w, chunk),
             lambda t, i, w=w: gk.gather_window_sum_reference(t, i, w, chunk),
-            lambda t, i, w=w: gk.window_rows(i, t.shape[0], w, chunk)))
+            lambda t, i, w=w: gk.window_rows(i, t.shape[0], w, chunk),
+            gk.gather_window_sum, gk.window_plan(rows, n_chunks, w, chunk)))
     depth = mg.OUTSTANDING
     cases.append((
         f"gather_rows_sum[outstanding={depth}]", "D", GATHER_ROWS_SOURCE,
@@ -1615,7 +1681,7 @@ def gather_cases(rows: int, gathered: int):
         rows,
         lambda t, i: gk.gather_rows_sum(t, i, chunk, depth),
         lambda t, i: gk.gather_rows_sum_reference(t, i, chunk),
-        lambda t, i: i.long()))
+        lambda t, i: i.long(), gk.gather_rows_sum, None))
     return cases
 
 
@@ -1625,20 +1691,27 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
     probe script's sizes: every chunk's sum within ``KERNEL_ATOL +
     KERNEL_RTOL·Σ|terms|`` of the plain version's (fp32 both, summation
     order only; 131,072 terms a chunk), and the grand total within the same
-    bound, over all terms, of the plain version run in float64. Times the
-    kernel, the plain version and the one PyTorch call for the same function
-    (``index_select`` of the named rows, reshape, ``sum``). Returns one
-    measurement entry per case."""
+    bound, over all terms, of the plain version run in float64; K4 and K5:
+    a second call equal bit for bit. Times the kernel warm (``ms``: the
+    median over ``GATHER_TIMING_TABLES`` copies of the table, each copy's
+    time in ``ms_tables``) and with a cold L2 (``ms_cold``), the plain
+    version and the one PyTorch call for the same function
+    (``index_select`` of the named rows, reshape, ``sum``).
+    Returns one measurement entry per case; K4 and K5 also say which kernel
+    ran, its CUDA kernels a call, its cut and the on-chip bound."""
     gen = torch.Generator(device=device).manual_seed(8)
     table = torch.randn((rows, 128), generator=gen, device=device)
     entries = []
     for (name, stage, source, replaces, n_idx, hi, kernel, plain,
-         named_rows) in gather_cases(rows, gathered):
+         named_rows, wrapper, plan) in gather_cases(rows, gathered):
         idx = torch.randint(0, hi, (n_idx,), generator=gen, device=device,
                             dtype=torch.int32)
         n_chunks = n_idx // mg.T
         out = kernel(table, idx)
+        again = kernel(table, idx)
         _sync(device)
+        if plan is not None and not torch.equal(out, again):
+            raise AssertionError(f"{name}: a second call gave other bits")
         ref = plain(table, idx)
         scale = plain(table.abs(), idx)
         err = scaled_err(out, ref, scale)
@@ -1652,13 +1725,19 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
         named = named_rows(table, idx)
         distinct = int(torch.unique(named).numel())
         b_ms, b_by = gather_bound_ms(distinct, n_idx, n_chunks)
-        ms = time_ms(lambda: kernel(table, idx), device, iters)
+        copies = [table.clone() for _ in range(GATHER_TIMING_TABLES)]
+        ms_tables = [time_ms(lambda c=c: kernel(c, idx), device, iters)
+                     for c in copies]
+        del copies
+        ms = float(np.median(ms_tables))
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "stage": stage,
             "max_abs_err": float((out - ref).abs().max()),
             "err_over_tol": err, "total_err_over_tol": total_err,
-            "ms": ms,
+            "ms": ms, "ms_tables": ms_tables,
+            "ms_cold": time_cold_ms(lambda: kernel(table, idx), device,
+                                    max(iters // 2, 1)),
             "plain_ms": time_ms(lambda: plain(table, idx), device,
                                 max(iters // 4, 1), warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1671,10 +1750,141 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
             "rows_gathered": n_idx, "chunks": n_chunks,
             "distinct_rows": distinct,
         }
+        if plan is not None:
+            entry.update({
+                "share_of_bound": b_ms / ms,
+                "onchip_bound_ms": gather_onchip_bound_ms(n_idx),
+                "cuda_kernels_per_call": wrapper.cuda_kernels,
+                "kernel_ran": wrapper.kernel,
+                "tile_cols": plan[0], "segments": plan[1]})
         print(f"[gather-kernel] {json.dumps(entry)}")
         entries.append(entry)
-        del idx, named, ref, scale
+        del idx, named, ref, scale, out, again
     return entries
+
+
+def gather_adversarial_cases(windows=GATHER_ADV_WINDOWS,
+                             chunks=GATHER_ADV_CHUNKS,
+                             k: int = WINDOWS_IN_TABLE):
+    """``(kernel, window, chunk, n_rows, n_chunks)`` of the gather probes'
+    adversarial checks: K5 at every window of ``windows`` and K4 (window =
+    chunk) at every chunk of ``chunks``, each in a table of ``k`` windows
+    and 77 rows (so ``n_rows % window`` is not 0 past window 77, and small
+    windows get more of them), with fewer chunks than windows, as many, and
+    three times as many and one."""
+    out = []
+    for kernel, spans in (("window", windows), ("block", chunks)):
+        for window in spans:
+            for chunk in (chunks if kernel == "window" else (window,)):
+                n_rows = window * k + 77
+                n_windows = n_rows // window
+                for n_chunks in (max(n_windows // 2, 1), n_windows,
+                                 3 * n_windows + 1):
+                    out.append((kernel, window, chunk, n_rows, n_chunks))
+    return out
+
+
+def gather_variants(kernel: str, window: int):
+    """Every kernel a probe wrapper may start at this window, as keyword
+    arguments of the wrapper: K5 at every tile width that fits (each its
+    own instantiation), K4 with the carve-out at its least and the CUDA
+    driver's default."""
+    if kernel == "window":
+        return [{"tile_cols": tc} for tc in gk.TILE_COLS
+                if window * tc * 4 <= gk.MAX_TILE_BYTES]
+    return [{"max_l1": max_l1} for max_l1 in (True, False)]
+
+
+def phase_gather_adversarial(device: torch.device, windows=GATHER_ADV_WINDOWS,
+                             chunks=GATHER_ADV_CHUNKS, seed: int = 21):
+    """K4 and K5, every kernel they may run (:func:`gather_variants`),
+    against their plain versions on :func:`gather_adversarial_cases`: a
+    table whose rows differ by up to six orders of magnitude (a lost or
+    doubled row shows), indices that the kernels clamp (−5, the window, and
+    2³¹−1) among the drawn ones. Hard limits: every chunk within
+    ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|`` of the plain version; a second
+    call equal bit for bit. Returns the largest error over tolerance per
+    kernel and window."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    report = {}
+    for kernel, window, chunk, n_rows, n_chunks in gather_adversarial_cases(
+            windows, chunks):
+        mag = 10.0 ** torch.randint(-3, 4, (n_rows, 1), generator=gen,
+                                    device=device)
+        table = torch.randn((n_rows, 128), generator=gen, device=device) * mag
+        idx = torch.randint(0, window, (n_chunks * chunk,), generator=gen,
+                            device=device, dtype=torch.int32)
+        for i, wild in enumerate((-5, window, 2 ** 31 - 1)):
+            idx[i::7] = wild
+        if kernel == "window":
+            ref = gk.gather_window_sum_reference(table, idx, window, chunk)
+            scale = gk.gather_window_sum_reference(table.abs(), idx, window,
+                                                   chunk)
+        else:
+            ref = gk.gather_block_sum_reference(table, idx, chunk)
+            scale = gk.gather_block_sum_reference(table.abs(), idx, chunk)
+        for kw in gather_variants(kernel, window):
+            tag = (f"gather_{kernel}_sum[W={window},T={chunk},rows={n_rows},"
+                   f"chunks={n_chunks},{kw}]")
+            if kernel == "window":
+                outs = [gk.gather_window_sum(table, idx, window, chunk, **kw)
+                        for _ in range(2)]
+            else:
+                outs = [gk.gather_block_sum(table, idx, chunk, **kw)
+                        for _ in range(2)]
+            if not torch.equal(*outs):
+                raise AssertionError(f"{tag}: a second call gave other bits")
+            err = scaled_err(outs[0], ref, scale)
+            if not err <= 1.0:
+                raise AssertionError(
+                    f"{tag}: disagrees with its plain version on an "
+                    f"adversarial shape ({err:.3g} x tolerance)")
+            key = f"{kernel},W={window}"
+            report[key] = max(report.get(key, 0.0), err)
+    print(f"[gather-adversarial] err/tol {json.dumps(report)}")
+    return report
+
+
+def phase_gather_sweep(device: torch.device, rows: int = mg.N,
+                       gathered: int = mg.E, iters: int = 20):
+    """Recorded, no limit on time: K5 at each window of the probe script
+    over every tile width that fits (the blocks that share an SM beside
+    it), and K4 with the carve-out at its least and the CUDA driver's, at the
+    probe's sizes; each result held against the plain version (hard
+    limit). Returns the rows."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    table = torch.randn((rows, 128), generator=gen, device=device)
+    on_card = device.type == "cuda"
+    out = []
+    for kernel, window in [("block", mg.T)] + [("window", w)
+                                               for w in mg.WINDOWS]:
+        idx = torch.randint(0, window, (gathered,), generator=gen,
+                            device=device, dtype=torch.int32)
+        ref = gk.gather_window_sum_reference(table, idx, window, mg.T)
+        scale = gk.gather_window_sum_reference(table.abs(), idx, window, mg.T)
+        for kw in gather_variants(kernel, window):
+            if kernel == "window":
+                def run(kw=kw):
+                    return gk.gather_window_sum(table, idx, window, mg.T, **kw)
+                occupancy = (gk.blocks_per_sm("window", window,
+                                              kw["tile_cols"])
+                             if on_card else None)
+            else:
+                def run(kw=kw):
+                    return gk.gather_block_sum(table, idx, mg.T, **kw)
+                occupancy = gk.blocks_per_sm("block") if on_card else None
+            err = scaled_err(run(), ref, scale)
+            if not err <= 1.0:
+                raise AssertionError(f"gather sweep {kernel} W={window} {kw}: "
+                                     f"disagrees with its plain version "
+                                     f"({err:.3g} x tolerance)")
+            row = {"kernel": kernel, "window": window, **kw,
+                   "blocks_per_sm": occupancy, "err_over_tol": err,
+                   "ms": time_ms(run, device, iters)}
+            print(f"[gather-sweep] {json.dumps(row)}")
+            out.append(row)
+        del idx, ref, scale
+    return out
 
 
 def phase_gather_path(device: torch.device, rows: int = mg.N,
@@ -1839,6 +2049,8 @@ def main() -> int:
     tail_report(entries)
     # the gather probes and full-batch GraphSAGE
     gather_entries = timed(phase_gather_kernel_check, device)
+    timed(phase_gather_adversarial, device)
+    timed(phase_gather_sweep, device)
     gather_info = timed(phase_gather_path, device)
     for e in gather_entries:
         e["launches"] = gather_info["launches"][e.pop("stage")]

@@ -6,7 +6,7 @@ chunk's indices name, and differs in where the rows come from:
 
 * K4 ``gather_block_sum`` (``csrc/gather_block.cu``, replaces
   ``make_dyn_gather``, ``scripts/microbench_gather7.py:73``): from the
-  chunk's own block of ``chunk`` rows, by plain indexed loads;
+  chunk's own block of ``chunk`` rows, by plain indexed loads that L1 serves;
 * K5 ``gather_window_sum`` (``csrc/gather_window.cu``, replaces
   ``make_onehot``, ``:100``): from a window of ``window`` rows staged in
   shared memory;
@@ -21,6 +21,15 @@ table's end, so the two agree wherever the Pallas one is in range. An index
 outside its range is clamped into it, in the kernels and the plain versions
 alike, as JAX clamps an out-of-range read: no load leaves the table.
 
+K4 and K5 work by window (or block) and column tile, not by chunk
+(``csrc/gather_tiles.cuh``): a thread block owns ``tile_cols`` columns of
+one window and serves every chunk that reads the window, each chunk cut
+into ``segments`` runs of slots, one warp a (chunk, segment); a second small
+kernel adds a chunk's partials in (tile, segment) order.
+:func:`window_plan` and :func:`block_plan` give that cut from the shapes
+alone, and :func:`gather_window_sum_tiled_reference` computes it in plain
+PyTorch for the CPU tests.
+
 The kernels are built with the others into one library
 (``segment_kernels.build``). Every wrapper takes its plain version only for
 CPU tensors; a CUDA tensor launches the kernel or raises. Types, shapes and
@@ -33,15 +42,26 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import segment_kernels as sk
 
 ROW_WIDTH = 128          # floats a table row: 32 lanes x float4
-MAX_CHUNK = 4096         # K5 and K6 keep a chunk's indices in shared memory
-MAX_WINDOW = 4096        # K5: a 64 KB tile holds >= 4 columns of the window
+MAX_CHUNK = 4096         # K6 keeps a chunk's indices in shared memory; K5
+                         # takes the same limit
+MAX_WINDOW = 4096        # K5: a 128 KB tile holds >= 8 columns of the window
 OUTSTANDING = (1, 2, 4, 8)   # K6's ring depths, one instantiation each
+# K5: a tile is TILE_COLS_DEFAULT columns of the window's rows (128 bytes a
+# row: a quarter-warp's float4 reads cover the 32 banks once), narrower
+# where those rows pass the MAX_TILE_BYTES of shared memory a block may
+# have; the fastest width at every probe window (chip_smoke.py's sweep)
+TILE_COLS_DEFAULT = 32
+MAX_TILE_BYTES = 232_448
+TILE_COLS = (8, 16, 32, 64, 128)
+BLOCK_TILE_COLS = 32     # K4: column quarters, one 128-byte L1 line a row
+WINDOW_WARPS, BLOCK_WARPS = 16, 32   # warps a thread block of K5, K4
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,14 +69,20 @@ def _library() -> ctypes.CDLL:
     """The kernel library with the gather entry points' signatures set."""
     lib = sk.load_library()
     ptrs = [ctypes.c_void_p] * 3
-    lib.gather_block_sum_f32.argtypes = ptrs + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.gather_window_sum_f32.argtypes = ptrs + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    started = [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    # table idx out partial | n_rows n_chunks chunk segments max_l1
+    lib.gather_block_sum_f32.argtypes = ptrs + [ctypes.c_void_p] + [
+        ctypes.c_int] * 5 + started
+    # table idx out partial | n_rows n_chunks chunk window tile_cols segments
+    lib.gather_window_sum_f32.argtypes = ptrs + [ctypes.c_void_p] + [
+        ctypes.c_int] * 6 + started
     lib.gather_rows_sum_f32.argtypes = ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
+    lib.gather_window_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.gather_block_blocks_per_sm.argtypes = []
     for fn in (lib.gather_block_sum_f32, lib.gather_window_sum_f32,
-               lib.gather_rows_sum_f32):
+               lib.gather_rows_sum_f32, lib.gather_window_blocks_per_sm,
+               lib.gather_block_blocks_per_sm):
         fn.restype = ctypes.c_int
     lib.gather_error_string.argtypes = [ctypes.c_int]
     lib.gather_error_string.restype = ctypes.c_char_p
@@ -100,22 +126,32 @@ def _chunk_sums(table: torch.Tensor, rows: torch.Tensor,
     return table.index_select(0, rows).reshape(n_chunks, -1).sum(1)
 
 
-def _launch(fn, name: str, key, table, n_chunks: int, call) -> torch.Tensor:
-    """Allocate the output, run ``call(lib, out, stream)`` on the table's
-    device and count the launch."""
+def _launch(fn, name: str, key, table, n_chunks: int, call,
+            per_chunk: int = 0) -> torch.Tensor:
+    """Allocate the output (and, with ``per_chunk`` > 1, a scratch of that
+    many partial floats a chunk), run ``call(lib, out, partial, started,
+    stream)`` on the table's device and count the launch. ``started`` is a
+    ctypes int that K4's and K5's entry points (``per_chunk`` >= 1) set to
+    the CUDA kernels they started; it lands in ``fn.cuda_kernels``."""
     out = torch.empty(n_chunks, dtype=torch.float32, device=table.device)
     if n_chunks == 0:
         return out
+    partial = (torch.empty(n_chunks * per_chunk, dtype=torch.float32,
+                           device=table.device) if per_chunk > 1 else None)
+    started = ctypes.c_int(0)
     lib = _library()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = call(lib, out, stream)
+        err = call(lib, out, None if partial is None else partial.data_ptr(),
+                   ctypes.byref(started), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.gather_error_string(err).decode()})")
     fn.launches += 1
     fn.launches_by[key] += 1
+    if per_chunk:
+        fn.cuda_kernels = started.value
     return out
 
 
@@ -130,6 +166,70 @@ def window_rows(idx: torch.Tensor, n_rows: int, window: int,
     return idx.long().clamp(0, window - 1) + first.repeat_interleave(chunk)
 
 
+def _segments(n_rows: int, n_chunks: int, chunk: int, span: int,
+              warps: int) -> int:
+    """Runs of slots a chunk is cut into so that a block's warps have an
+    item each: the block of the window that serves the most chunks, ``m``,
+    gets ``m · segments >= warps`` items, no run shorter than 32 slots
+    (unless the chunk is), and no run empty."""
+    m = max(-(-n_chunks // max(min(n_rows // span, n_chunks), 1)), 1)
+    want = min(-(-warps // m), max(chunk // 32, 1))
+    seg_len = -(-chunk // want)
+    return -(-chunk // seg_len)
+
+
+def window_tile_cols(window: int) -> int:
+    """K5's tile width: ``TILE_COLS_DEFAULT`` columns, or the widest power
+    of two below it (at least 8) whose ``window`` rows fit
+    ``MAX_TILE_BYTES``."""
+    cols = TILE_COLS_DEFAULT
+    while cols > TILE_COLS[0] and window * cols * 4 > MAX_TILE_BYTES:
+        cols //= 2
+    return cols
+
+
+def window_plan(n_rows: int, n_chunks: int, window: int, chunk: int = 1024,
+                tile_cols: Optional[int] = None) -> Tuple[int, int]:
+    """``(tile_cols, segments)`` of a K5 call: columns a block stages and
+    runs of slots a chunk is cut into (``csrc/gather_tiles.cuh``)."""
+    return (tile_cols or window_tile_cols(window),
+            _segments(n_rows, n_chunks, chunk, window, WINDOW_WARPS))
+
+
+def block_plan(n_rows: int, n_chunks: int,
+               chunk: int = 1024) -> Tuple[int, int]:
+    """``(tile_cols, segments)`` of a K4 call: its column quarters and runs
+    of slots a chunk is cut into."""
+    return (BLOCK_TILE_COLS,
+            _segments(n_rows, n_chunks, chunk, chunk, BLOCK_WARPS))
+
+
+def gather_window_sum_tiled_reference(table: torch.Tensor, idx: torch.Tensor,
+                                      window: int, chunk: int = 1024,
+                                      tile_cols: Optional[int] = None,
+                                      segments: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """K5 (and, with ``window = chunk``, ``tile_cols`` 32 and K4's
+    segments, K4) in plain PyTorch *the way the kernels cut it*: for every
+    chunk one partial a (column tile, run of slots), each the sum of its
+    rows' tile columns, then a chunk's partials added in (tile, run) order.
+    ``tile_cols`` and ``segments`` default to :func:`window_plan`'s. For the
+    CPU tests: it holds the whole ``[E, 128]`` gather."""
+    n_chunks = idx.numel() // chunk
+    plan = window_plan(table.shape[0], n_chunks, window, chunk, tile_cols)
+    tile_cols, segments = tile_cols or plan[0], segments or plan[1]
+    rows = window_rows(idx, table.shape[0], window, chunk)
+    g = table.index_select(0, rows).view(n_chunks, chunk,
+                                         ROW_WIDTH // tile_cols, tile_cols)
+    seg_len = -(-chunk // segments)
+    out = None
+    for j in range(ROW_WIDTH // tile_cols):
+        for s in range(segments):
+            part = g[:, s * seg_len:(s + 1) * seg_len, j].sum((1, 2))
+            out = part if out is None else out + part
+    return out
+
+
 def gather_block_sum_reference(table: torch.Tensor, idx: torch.Tensor,
                                chunk: int = 1024) -> torch.Tensor:
     """Plain PyTorch version of K4: ``index_select`` of the block's rows,
@@ -139,7 +239,7 @@ def gather_block_sum_reference(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_block_sum(table: torch.Tensor, idx: torch.Tensor,
-                     chunk: int = 1024) -> torch.Tensor:
+                     chunk: int = 1024, *, max_l1: bool = True) -> torch.Tensor:
     """``out[c] = Σ_{s<chunk} Σ_f table[b·chunk + idx[c·chunk + s], f]`` with
     ``b = c % (n_rows // chunk)``: per-chunk sums ``[n_chunks]`` of the rows
     gathered inside each chunk's own block of the table.
@@ -147,16 +247,25 @@ def gather_block_sum(table: torch.Tensor, idx: torch.Tensor,
     ``table`` float32 ``[n_rows, 128]``, ``idx`` int32 with values in
     ``[0, chunk)`` (others are clamped into it), both contiguous. CUDA
     tensors run K4 on the current stream; CPU tensors run
-    :func:`gather_block_sum_reference`. Each launch adds one to
-    ``gather_block_sum.launches`` and ``.launches_by[chunk]``."""
+    :func:`gather_block_sum_reference`. ``max_l1`` sets the shared-memory
+    carve-out to its least (else the CUDA driver's default); the gather sweep
+    times both. Each launch adds one to
+    ``gather_block_sum.launches`` and ``.launches_by[chunk]``;
+    ``.cuda_kernels`` holds the CUDA kernels the last call started (2: the
+    quarters, then their sums) and ``.kernel`` the name of the kernel it
+    ran."""
     n_chunks = _check("gather_block_sum", table, idx, chunk, chunk)
     if not table.is_cuda:
         return gather_block_sum_reference(table, idx, chunk)
+    tile_cols, segments = block_plan(table.shape[0], n_chunks, chunk)
+    gather_block_sum.kernel = "block_quarters"
     return _launch(
         gather_block_sum, "gather_block_sum", chunk, table, n_chunks,
-        lambda lib, out, stream: lib.gather_block_sum_f32(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0],
-            n_chunks, chunk, stream))
+        lambda lib, out, part, started, stream: lib.gather_block_sum_f32(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), part,
+            table.shape[0], n_chunks, chunk, segments, int(max_l1),
+            started, stream),
+        per_chunk=ROW_WIDTH // tile_cols * segments)
 
 
 def gather_window_sum_reference(table: torch.Tensor, idx: torch.Tensor,
@@ -170,7 +279,8 @@ def gather_window_sum_reference(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_window_sum(table: torch.Tensor, idx: torch.Tensor, window: int,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024, *,
+                      tile_cols: Optional[int] = None) -> torch.Tensor:
     """``out[c] = Σ_{s<chunk} Σ_f table[v·window + idx[c·chunk + s], f]`` with
     ``v = c % (n_rows // window)``: per-chunk sums ``[n_chunks]`` of the rows
     gathered from each chunk's window of the table.
@@ -179,8 +289,19 @@ def gather_window_sum(table: torch.Tensor, idx: torch.Tensor, window: int,
     ``[0, window)`` (others are clamped into it), both contiguous;
     ``window`` and ``chunk`` at most 4096. CUDA tensors run K5 on the
     current stream; CPU tensors run :func:`gather_window_sum_reference`.
-    Each launch adds one to ``gather_window_sum.launches`` and
-    ``.launches_by[window]``."""
+    ``tile_cols``, the columns a block stages (a power of two from 8 to 128
+    whose ``window`` rows fit 227 KB), is what the gather sweep varies;
+    None takes :func:`window_tile_cols`. Each launch adds one to
+    ``gather_window_sum.launches`` and ``.launches_by[window]``;
+    ``.cuda_kernels`` holds the CUDA kernels the last call started (1, or 2
+    when a chunk has more than one partial) and ``.kernel`` the name of the
+    kernel it ran."""
+    if tile_cols is not None and (tile_cols not in TILE_COLS or
+                                  window * tile_cols * 4 > MAX_TILE_BYTES):
+        raise ValueError(f"gather_window_sum: tile_cols must be one of "
+                         f"{TILE_COLS} with window * tile_cols * 4 <= "
+                         f"{MAX_TILE_BYTES} bytes, got {tile_cols} at "
+                         f"window {window}")
     n_chunks = _check("gather_window_sum", table, idx, chunk, window)
     if not table.is_cuda:
         return gather_window_sum_reference(table, idx, window, chunk)
@@ -188,11 +309,26 @@ def gather_window_sum(table: torch.Tensor, idx: torch.Tensor, window: int,
         raise ValueError(f"gather_window_sum: the kernel takes window <= "
                          f"{MAX_WINDOW} and chunk <= {MAX_CHUNK}, got "
                          f"{window} and {chunk}")
+    tile_cols, segments = window_plan(table.shape[0], n_chunks, window, chunk,
+                                      tile_cols)
+    gather_window_sum.kernel = "window_tiles"
     return _launch(
         gather_window_sum, "gather_window_sum", window, table, n_chunks,
-        lambda lib, out, stream: lib.gather_window_sum_f32(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0],
-            n_chunks, chunk, window, stream))
+        lambda lib, out, part, started, stream: lib.gather_window_sum_f32(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), part,
+            table.shape[0], n_chunks, chunk, window, tile_cols, segments,
+            started, stream),
+        per_chunk=ROW_WIDTH // tile_cols * segments)
+
+
+def blocks_per_sm(kernel: str, window: int = 0, tile_cols: int = 0) -> int:
+    """Thread blocks of K4 (``kernel="block"``) or K5 (``"window"``, at
+    ``window`` and ``tile_cols``) that share one SM, as the CUDA runtime
+    computes it: what the gather sweep records beside each time."""
+    lib = _library()
+    if kernel == "block":
+        return lib.gather_block_blocks_per_sm()
+    return lib.gather_window_blocks_per_sm(window, tile_cols)
 
 
 def gather_rows_sum_reference(table: torch.Tensor, idx: torch.Tensor,
@@ -226,7 +362,7 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
                          f"{MAX_CHUNK}, got {chunk}")
     return _launch(
         gather_rows_sum, "gather_rows_sum", outstanding, table, n_chunks,
-        lambda lib, out, stream: lib.gather_rows_sum_f32(
+        lambda lib, out, part, started, stream: lib.gather_rows_sum_f32(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0],
             n_chunks, chunk, outstanding, stream))
 
@@ -235,3 +371,6 @@ for _fn in (gather_block_sum, gather_window_sum, gather_rows_sum):
     _fn.launches = 0
     _fn.launches_by = collections.Counter()
     sk.COUNTED_WRAPPERS.append(_fn)
+for _fn in (gather_block_sum, gather_window_sum):
+    _fn.cuda_kernels = 0
+    _fn.kernel = None

@@ -16,6 +16,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
 
+@pytest.fixture
+def one_cpu_thread():
+    """Run a test's torch CPU ops on one thread, a measure of time only,
+    for the rehearsals that ran longest under six test workers on eight
+    cores: their thousands of small ops each wait at an OpenMP barrier for
+    descheduled threads when they run on eight
+    (``test_adversarial_phase_rehearsal`` took 13 minutes so,
+    ``test_gat_parity_and_quality_phase_rehearsal`` almost 5)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_kernel_check_phase_rehearsal():
     entries = cs.phase_kernel_check(CPU, num_nodes=300, iters=1)
     assert [e["name"] for e in entries] == [
@@ -46,6 +60,7 @@ SCHEDULE_KEYS = {"chunk_edges", "chunks", "cross_rows", "scratch_rows",
                  "share_of_bound", "structure_s"}
 
 
+@pytest.mark.usefixtures("one_cpu_thread")
 def test_adversarial_phase_rehearsal():
     # one width, the one with two columns a lane
     report = cs.phase_adversarial(CPU, feats=(47,))   # K3 at every shape
@@ -140,6 +155,7 @@ def test_parity_and_quality_phase_rehearsal():
     assert cs.phase_quality(CPU) >= cs.SBM_MIN_TEST_ACC
 
 
+@pytest.mark.usefixtures("one_cpu_thread")
 def test_gat_kernel_check_phase_rehearsal():
     entries = cs.phase_gat_kernel_check(CPU, num_nodes=300, iters=1)
     assert [e["name"] for e in entries] == [
@@ -204,6 +220,7 @@ def test_gat_main_path_phase_rehearsal():
     assert info["train_step_ms"] > 0 and info["eval_ms"] > 0
 
 
+@pytest.mark.usefixtures("one_cpu_thread")
 def test_gat_parity_and_quality_phase_rehearsal():
     assert cs.phase_gat_parity(CPU, num_nodes=300) == 0.0
     assert cs.phase_gat_quality(CPU) >= cs.SBM_MIN_TEST_ACC
@@ -368,6 +385,10 @@ def test_accum_bound_counts_each_byte_once():
 
 
 def test_gather_kernel_check_phase_rehearsal():
+    # what K4's and K5's wrappers ran last, if anything (a card test in the
+    # same process may have run them); no kernel runs on the CPU
+    wrappers = {"B": cs.gk.gather_block_sum, "C": cs.gk.gather_window_sum}
+    before = {k: (fn.kernel, fn.cuda_kernels) for k, fn in wrappers.items()}
     entries = cs.phase_gather_kernel_check(CPU, rows=4096, gathered=4096,
                                            iters=1)
     assert [(e["name"], e["stage"]) for e in entries] == [
@@ -377,18 +398,96 @@ def test_gather_kernel_check_phase_rehearsal():
         ("gather_window_sum[W=1024]", "C1024"),
         ("gather_rows_sum[outstanding=8]", "D")]
     for e in entries:
-        assert KERNEL_KEYS | {"ns_per_row", "gathered_bytes_per_s"} <= set(e)
+        assert KERNEL_KEYS | {"ns_per_row", "gathered_bytes_per_s",
+                              "ms_cold"} <= set(e)
         assert e["err_over_tol"] == 0.0   # the plain version on both sides
         assert e["total_err_over_tol"] <= 1.0
         assert e["bound_by"] == "bytes" and e["library_ms"] > 0
+        assert e["ms_cold"] > 0
+        # the median over copies of the table, each timed on its own
+        assert len(e["ms_tables"]) == cs.GATHER_TIMING_TABLES
+        assert e["ms"] == sorted(e["ms_tables"])[len(e["ms_tables"]) // 2]
         assert e["rows_gathered"] == (1024 if e["stage"] == "D" else 4096)
         assert e["ns_per_row"] == pytest.approx(
             e["ms"] * 1e6 / e["rows_gathered"])
         _replaces(e, "        parts = pl.pallas_call(")
+        if e["stage"] == "D":
+            continue
+        # K4 and K5: their cut, their share of both bounds, what ran
+        assert e["share_of_bound"] == pytest.approx(e["bound_ms"] / e["ms"])
+        assert e["onchip_bound_ms"] == pytest.approx(
+            512 * 4096 / (132 * 128 * 1.98e9) * 1e3)
+        assert (e["kernel_ran"], e["cuda_kernels_per_call"]) == before[
+            e["stage"][0]]
+    # 4096 rows, 4 chunks: one block a window up to W = 1024
+    assert [(e["tile_cols"], e["segments"]) for e in entries[:4]] == [
+        (32, 32), (32, 16), (32, 16), (32, 16)]
     # each names its own source and the call site of its own Pallas probe
     assert [e["replaces"].split(":")[1] for e in entries] == [
         "82", "111", "111", "111", "165"]
     assert len({e["source"] for e in entries}) == 3
+
+
+def test_gather_adversarial_phase_rehearsal():
+    report = cs.phase_gather_adversarial(CPU, windows=(1, 32, 256),
+                                         chunks=(1, 31))
+    assert set(report) == {"window,W=1", "window,W=32", "window,W=256",
+                           "block,W=1", "block,W=31"}
+    assert set(report.values()) == {0.0}   # the plain version on both sides
+
+
+def test_gather_adversarial_cases_are_what_the_checks_say():
+    cases = cs.gather_adversarial_cases()
+    windows = {(w, t) for k, w, t, _, _ in cases if k == "window"}
+    assert windows == {(w, t) for w in (1, 32, 256, 1024, 4096)
+                       for t in (1, 31, 1024, 4096)}
+    assert {w for k, w, t, _, _ in cases if k == "block"} == {1, 31, 1024,
+                                                              4096}
+    for kernel, window, chunk, n_rows, n_chunks in cases:
+        assert n_rows == 3 * window + 77
+        assert kernel == "window" or window == chunk
+    # fewer chunks than windows, as many, and 3x + 1, for every window
+    by_window = {}
+    for k, w, t, n_rows, n_chunks in cases:
+        by_window.setdefault((k, w, t, n_rows // w), []).append(n_chunks)
+    for (_, w, _, n_windows), got in by_window.items():
+        assert got == [max(n_windows // 2, 1), n_windows, 3 * n_windows + 1]
+        assert n_windows == (3 if w > 77 else 3 + 77 // w)
+    # every tile width that fits is a variant of K5; K4 takes both
+    # carve-outs
+    assert cs.gather_variants("window", 1024) == [
+        {"tile_cols": 8}, {"tile_cols": 16}, {"tile_cols": 32}]
+    assert len(cs.gather_variants("window", 256)) == 5
+    assert cs.gather_variants("block", 1024) == [{"max_l1": True},
+                                                 {"max_l1": False}]
+
+
+def test_gather_adversarial_phase_catches_a_kernel_off_by_a_little(
+        monkeypatch):
+    real = cs.gk.gather_window_sum
+
+    def off_by_a_little(*a, **kw):
+        return real(*a, **kw) * 1.001
+
+    monkeypatch.setattr(cs.gk, "gather_window_sum", off_by_a_little)
+    with pytest.raises(AssertionError, match="adversarial shape"):
+        cs.phase_gather_adversarial(CPU, windows=(32,), chunks=(31,))
+
+
+def test_gather_sweep_phase_rehearsal():
+    rows = cs.phase_gather_sweep(CPU, rows=4096, gathered=2048, iters=1)
+    assert [(r["kernel"], r["window"]) for r in rows] == (
+        [("block", 1024)] * 2 + [("window", 256)] * 5
+        + [("window", 512)] * 4 + [("window", 1024)] * 3)
+    assert all(r["err_over_tol"] == 0.0 and r["ms"] > 0 for r in rows)
+    assert all(r["blocks_per_sm"] is None for r in rows)   # no card
+    assert [r["max_l1"] for r in rows[:2]] == [True, False]
+
+
+def test_cold_timing_writes_past_the_l2_between_calls():
+    calls = []
+    assert cs.time_cold_ms(lambda: calls.append(1), CPU, iters=3) >= 0
+    assert len(calls) == 4 and cs.COLD_FLUSH_BYTES > 50 * 2 ** 20
 
 
 def test_gather_bound_counts_each_byte_once():

@@ -24,6 +24,7 @@ from cogdl_tpu_torch.ops.cuda.gather_kernels import (
     gather_rows_sum_reference,
     gather_window_sum,
     gather_window_sum_reference,
+    window_plan,
     window_rows,
 )
 from cogdl_tpu_torch.ops.cuda.segment_kernels import (
@@ -510,6 +511,54 @@ def test_gather_kernels_clamp_out_of_range_indices(dev):
                      (lambda i: gather_rows_sum(table, i), GATHER_ROWS)):
         assert torch.equal(call(wild), call(wild.clamp(0, hi - 1)))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("window,tile_cols",
+                         [(w, tc) for w in (1, 32, 90, 256, 512, 1024, 4096)
+                          for tc in (8, 16, 32, 64, 128)
+                          if w * tc * 4 <= 232_448])
+@pytest.mark.parametrize("chunk,n_chunks", [(1024, 3), (31, 40), (1, 7),
+                                            (4096, 2)])
+def test_gather_window_tiles_match_plain_and_repeat_bit_for_bit(
+        dev, window, tile_cols, chunk, n_chunks):
+    table, idx = _gather_case(dev, chunk * n_chunks, window, seed=window)
+    out = gather_window_sum(table, idx, window, chunk, tile_cols=tile_cols)
+    per_call = gather_window_sum.cuda_kernels
+    assert torch.equal(out, gather_window_sum(table, idx, window, chunk,
+                                              tile_cols=tile_cols))
+    torch.cuda.synchronize()
+    assert gather_window_sum.kernel == "window_tiles"
+    _, segments = window_plan(GATHER_ROWS, n_chunks, window, chunk, tile_cols)
+    assert per_call == (1 if 128 // tile_cols * segments == 1 else 2)
+    _close_per_chunk(out, gather_window_sum_reference(table, idx, window,
+                                                      chunk),
+                     table, window_rows(idx, GATHER_ROWS, window, chunk),
+                     n_chunks)
+
+
+@pytest.mark.parametrize("max_l1", [True, False])
+@pytest.mark.parametrize("chunk,n_chunks", [(1024, 20), (31, 300), (1, 9),
+                                            (4096, 3)])
+def test_gather_block_quarters_match_plain_and_repeat_bit_for_bit(
+        dev, max_l1, chunk, n_chunks):
+    table, idx = _gather_case(dev, chunk * n_chunks, chunk, seed=chunk)
+    out = gather_block_sum(table, idx, chunk, max_l1=max_l1)
+    assert gather_block_sum.cuda_kernels == 2
+    assert gather_block_sum.kernel == "block_quarters"
+    assert torch.equal(out, gather_block_sum(table, idx, chunk,
+                                             max_l1=max_l1))
+    torch.cuda.synchronize()
+    _close_per_chunk(out, gather_block_sum_reference(table, idx, chunk),
+                     table, window_rows(idx, GATHER_ROWS, chunk, chunk),
+                     n_chunks)
+
+
+def test_gather_occupancy_is_reported(dev):
+    from cogdl_tpu_torch.ops.cuda.gather_kernels import blocks_per_sm
+    assert blocks_per_sm("window", 1024, 32) >= 1   # 128 KB: one a SM
+    assert blocks_per_sm("window", 1024, 8) > blocks_per_sm("window", 1024,
+                                                            32)
+    assert blocks_per_sm("block") in (1, 2)
 
 
 def test_gather_wrappers_refuse_on_the_card(dev):

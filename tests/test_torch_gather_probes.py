@@ -26,7 +26,11 @@ from cogdl_tpu_torch.ops.cuda import (
     gather_window_sum,
     gather_window_sum_reference,
 )
-from cogdl_tpu_torch.ops.cuda.gather_kernels import window_rows
+from cogdl_tpu_torch.ops.cuda import gather_kernels as gk
+from cogdl_tpu_torch.ops.cuda.gather_kernels import (
+    gather_window_sum_tiled_reference,
+    window_rows,
+)
 from cogdl_tpu_torch.scripts import microbench_gather as mg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -252,3 +256,114 @@ def test_jax_script_is_untouched_by_the_patches(jax_probes):
     src = open(os.path.join(REPO, "scripts", "microbench_gather7.py")).read()
     assert "N = 100_352" in src and "E = 3_145_728" in src
     assert jax_probes.N == ROWS and jax_probes.E == mg.E
+
+
+# ---------------------------------------------------------------------------
+# The cut of the redesigned K4 and K5: per (chunk, column tile, run of
+# slots) partials added in order. Tolerance: fp32 sums of the same terms in
+# another order, ATOL + RTOL·Σ|terms| a chunk, as above.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile_cols", [4, 16, 32, 128])
+@pytest.mark.parametrize("window", [256, 512])
+def test_tiled_reference_matches_plain_and_pallas(jax_probes, window,
+                                                  tile_cols):
+    n_chunks = 4
+    table, idx = _inputs(n_chunks, window, seed=window + tile_cols)
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    out = gather_window_sum_tiled_reference(t, i, window, T, tile_cols,
+                                            segments=2)
+    rows = idx + np.repeat(
+        (np.arange(n_chunks) % (ROWS // window)) * window, T)
+    _held(out, table, rows, n_chunks)
+    plain = gather_window_sum_reference(t, i, window, T)
+    scale = gather_window_sum_reference(t.abs(), i, window, T)
+    assert float(((out - plain).abs() / (ATOL + RTOL * scale)).max()) <= 1.0
+    total_j = float(jax_probes.make_onehot(window, n_chunks)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+
+
+def test_tiled_reference_cut_as_k4_matches_pallas(jax_probes):
+    n_chunks = 4
+    table, idx = _inputs(n_chunks, T, seed=11)
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    tile_cols, segments = gk.block_plan(ROWS, n_chunks, T)
+    # one chunk a block: its 32 warps take a run of 32 slots each
+    assert (tile_cols, segments) == (32, 32)
+    out = gather_window_sum_tiled_reference(t, i, T, T, tile_cols, segments)
+    rows = idx + np.repeat(np.arange(n_chunks) * T, T)
+    _held(out, table, rows, n_chunks)
+    total_j = float(jax_probes.make_dyn_gather(n_chunks)(
+        jnp.asarray(table), jnp.asarray(idx)))
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+
+
+# (n_rows, window, chunk, n_chunks): more chunks than windows and not a
+# multiple of them; fewer chunks than windows (windows that serve none);
+# rows past the last whole window; chunks of 1 to 4096 slots
+UNEVEN = [(3 * 256 + 77, 256, 1024, 3 * 3 + 1),
+          (9 * 32 + 77, 32, 31, 4),
+          (5 * 1024 + 77, 1024, 4096, 5),
+          (2 * 4096 + 77, 4096, 1, 7),
+          (80, 1, 5, 3 * 80 + 1),
+          (700, 90, 7, 23)]
+
+
+@pytest.mark.parametrize("tile_cols", [4, 16, 32, 128])
+@pytest.mark.parametrize("n_rows,window,chunk,n_chunks", UNEVEN)
+def test_tiled_reference_on_uneven_groups(n_rows, window, chunk, n_chunks,
+                                          tile_cols):
+    rng = np.random.default_rng(n_rows + chunk)
+    table = rng.standard_normal((n_rows, 128)).astype(np.float32)
+    idx = rng.integers(-3, window + 3, chunk * n_chunks).astype(np.int32)
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    plan = gk.window_plan(n_rows, n_chunks, window, chunk)
+    out = gather_window_sum_tiled_reference(t, i, window, chunk, tile_cols,
+                                            plan[1])
+    rows = window_rows(i, n_rows, window, chunk).numpy()
+    assert rows.max() < (n_rows // window) * window   # the tail is not read
+    _held(out, table, rows, n_chunks)
+    # the kernel's own cut (its tile width and runs) agrees too
+    own = gather_window_sum_tiled_reference(t, i, window, chunk)
+    _held(own, table, rows, n_chunks)
+
+
+@pytest.mark.parametrize("window,cols", [(1, 32), (90, 32), (256, 32),
+                                         (1024, 32), (1816, 32), (1817, 16),
+                                         (2048, 16), (4096, 8)])
+def test_window_tiles_are_32_columns_where_they_fit(window, cols):
+    assert gk.window_tile_cols(window) == cols
+    assert window * cols * 4 <= gk.MAX_TILE_BYTES
+
+
+def test_plans_at_the_probe_sizes():
+    """One item a warp at the probe script's sizes: W = 256 serves ~8
+    chunks a window over 16 warps, so its chunks are cut in two; the rest
+    serve 16 or more chunks (K4: ~31 over 32 warps)."""
+    n_chunks = mg.E // mg.T
+    assert [gk.window_plan(mg.N, n_chunks, w) for w in mg.WINDOWS] == [
+        (32, 2), (32, 1), (32, 1)]
+    assert gk.block_plan(mg.N, n_chunks) == (32, 1)
+    # runs are never empty and never shorter than 32 slots, unless the chunk is
+    for n_rows, window, chunk, n_c in UNEVEN:
+        _, segs = gk.window_plan(n_rows, n_c, window, chunk)
+        seg_len = -(-chunk // segs)
+        assert (segs - 1) * seg_len < chunk
+        assert seg_len >= min(32, chunk)
+
+
+def test_plans_and_tiled_reference_take_no_chunk():
+    t = torch.from_numpy(_inputs(1, 256)[0])
+    none = torch.zeros(0, dtype=torch.int32)
+    # no chunk: a plan all the same (the kernels then start nothing)
+    assert gk.window_plan(ROWS, 0, 256)[0] == gk.block_plan(ROWS, 0)[0] == 32
+    assert gather_window_sum_tiled_reference(t, none, 256).shape == (0,)
+
+
+def test_window_wrapper_refuses_a_tile_it_does_not_take():
+    t, i = _good()
+    with pytest.raises(ValueError, match="tile_cols"):
+        gather_window_sum(t, i, 256, T, tile_cols=24)
+    with pytest.raises(ValueError, match="tile_cols"):
+        gather_window_sum(t, i, 4096 // 4 * 4, T, tile_cols=128)
