@@ -17,15 +17,17 @@ also held against their plain versions on structures that sit on the chunk
 schedule's edges (a star, rows of exactly one chunk more or less, no edge
 at all), and K1/K2's chunk size is swept. Then
 the gather probes (K4, K5 and K6 against their plain versions at the sizes of
-``cogdl_tpu_torch.scripts.microbench_gather``, warm and with a cold L2; K4
-and K5, which serve every chunk of a window from one staging, also on
-adversarial shapes (uneven window groups, chunks of 1 to 4096 slots,
-windows of 1 to 4096 rows, clamped indices) with every kernel they may
-run, and swept over tile widths and carve-outs; every stage of that
-script with exact launch counts) and full-batch GraphSAGE through
+``cogdl_tpu_torch.scripts.microbench_gather``, timed as the host queues
+the calls and with the host held out (``device_ms``), warm and with a cold
+L2; also on adversarial shapes (uneven window groups, chunks of 1 to 4096
+slots, windows of 1 to 4096 rows, fewer chunks than SMs and more, clamped
+indices) with every kernel they may run, and swept over K5's tile widths,
+K4's carve-outs and K6's depths; every stage of
+that script with exact launch counts) and full-batch GraphSAGE through
 ``experiment()``. Prints one JSON line of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
-or any phase fails.
+or any phase fails. ``--gather-only`` builds the kernels and runs only the
+gather probes' kernel check; its last line says ``"gather_only": true``.
 
 The phases are functions of a device and a size so that a CPU test can
 rehearse them at a tiny size.
@@ -33,6 +35,8 @@ rehearse them at a tiny size.
 
 from __future__ import annotations
 
+import argparse
+import collections
 import copy
 import functools
 import itertools
@@ -73,7 +77,7 @@ from cogdl_tpu_torch.ops.cuda import (
 )
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
-from cogdl_tpu_torch.utils.timing import time_ms
+from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 
 # bench.py's default GCN configuration: 100k nodes, avg degree 30, F=100,
@@ -102,8 +106,10 @@ FP32_FLOPS_PER_S = 67e12
 # 1.98 GHz boost clock; what a gather probe that reads every slot's row out
 # of on-chip memory needs at the least
 ONCHIP_BYTES_PER_S = 132 * 128 * 1.98e9
-# the write between two launches of a cold-L2 time: more than the 50 MB L2
+# the write between two launches of a cold-L2 time: more than the 50 MB L2;
+# the card's sleep while the host queues those writes and calls
 COLD_FLUSH_BYTES = 64 * 2 ** 20
+COLD_SLEEP_MS = 50.0
 # The gather probes' `ms` is the median over this many copies of the table,
 # each at its own addresses and timed after its own warm-up: a copy's warm
 # time follows which of its rows the L2 keeps (K6 reads 44 MB of a 51 MB
@@ -140,6 +146,11 @@ GATHER_ROWS_REPLACES = "scripts/microbench_gather7.py:165"
 GATHER_ADV_WINDOWS = (1, 32, 256, 1024, 4096)
 GATHER_ADV_CHUNKS = (1, 31, 1024, 4096)
 WINDOWS_IN_TABLE = 3
+# K6's adversarial table: rows from anywhere in it, so its height only sets
+# which indices are clamped
+GATHER_ADV_ROWS = 3 * 4096 + 77
+# the SM count the CPU rehearsal cuts K6's cases by (the H100's)
+NOMINAL_SMS = 132
 # GraphSAGE's short run with the "sum" aggregator (the K1 count) and the
 # aggregators whose card logits are held against the CPU's
 SAGE_SUM_EPOCHS = 30
@@ -177,6 +188,21 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_state() -> str:
+    """The card's SM and memory clocks, temperature and power draw as
+    nvidia-smi reports them now, or "not measured" where there is no
+    nvidia-smi (the CPU rehearsal)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi",
+             "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return "not measured"
     return out.stdout.strip().splitlines()[0]
 
 
@@ -1629,18 +1655,26 @@ def gather_onchip_bound_ms(n_idx: int) -> float:
 def time_cold_ms(fn, device: torch.device, iters: int = 10) -> float:
     """Mean milliseconds of ``fn`` with a cold L2: a write of
     ``COLD_FLUSH_BYTES`` before each call, CUDA events around the call
-    only (the host clock on the CPU, rehearsal only)."""
+    only, every call queued while the stream sleeps (:func:`behind_sleep`)
+    so that the events time the card and not the host's enqueue (the host
+    clock on the CPU, rehearsal only)."""
     flush = torch.empty(COLD_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
+    flush.fill_(1.0)
     fn()
     if device.type == "cuda":
+        _sync(device)
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-        for start, end in events:
-            flush.fill_(1.0)
-            start.record()
-            fn()
-            end.record()
+
+        def enqueue():
+            for start, end in events:
+                flush.fill_(1.0)
+                start.record()
+                fn()
+                end.record()
+
+        behind_sleep(enqueue, COLD_SLEEP_MS)
         torch.cuda.synchronize(device)
         return sum(a.elapsed_time(b) for a, b in events) / iters
     total = 0.0
@@ -1652,20 +1686,70 @@ def time_cold_ms(fn, device: torch.device, iters: int = 10) -> float:
     return total * 1e3 / iters
 
 
+def profiler_kernel_ms(fn, device: torch.device, iters: int = 20):
+    """Cross-check of a device time: the time ``torch.profiler``'s CUDA
+    kernels kept the card busy over ``iters`` calls of ``fn``, per call,
+    with the kernels a call and each kernel's own duration a call by
+    name. ``profiler_ms`` is None, with the reason, where
+    the profiler saw no device time (and on the CPU, where there is
+    none)."""
+    if device.type != "cuda":
+        return {"profiler_ms": None, "profiler_note": "no card (rehearsal)"}
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(device)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"profiler_ms": None,
+                "profiler_note": "the profiler recorded no device time"}
+    by_name = collections.Counter()
+    spans = []
+    for e in kernels:
+        # "void (anonymous namespace)::name<...>(args)" -> "name<...>"
+        by_name[e.name.split("::")[-1].split("(")[0]] += (
+            e.time_range.elapsed_us() / 1e3 / iters)
+        spans.append((e.time_range.start, e.time_range.end))
+    # the card's busy time: kernels that overlap (a programmatic dependent
+    # launch starts before the kernel it waits for ends) count once
+    busy, reach = 0, None
+    for lo, hi in sorted(spans):
+        if reach is None or lo > reach:
+            busy += hi - lo
+            reach = hi
+        elif hi > reach:
+            busy += hi - reach
+            reach = hi
+    return {"profiler_ms": busy / 1e3 / iters,
+            "profiler_kernels_per_call": len(kernels) / iters,
+            "profiler_ms_by_kernel": dict(by_name)}
+
+
 def gather_cases(rows: int, gathered: int):
     """One case per gather kernel and size the probe script runs:
     ``(name, stage, source, replaces, entries of idx, index range, kernel,
-    plain version, slot -> table row, wrapper, (tile_cols, segments) of
-    its cut or None)``, the kernel, plain version and slot map functions of
-    ``(table, idx)``."""
+    plain version, slot -> table row, wrapper, cut)``, the kernel, plain
+    version and slot map functions of ``(table, idx)``, ``cut()`` the
+    fields that say how the kernel cut its work (K4, K5: from the shapes;
+    K6: what its last call on the card used, None before one)."""
     chunk = mg.T
     n_chunks = gathered // chunk
+
+    def tiles(plan):
+        return lambda: {"tile_cols": plan[0], "segments": plan[1]}
+
     cases = [(f"gather_block_sum[T={chunk}]", "B", GATHER_BLOCK_SOURCE,
               GATHER_BLOCK_REPLACES, gathered, chunk,
               lambda t, i: gk.gather_block_sum(t, i, chunk),
               lambda t, i: gk.gather_block_sum_reference(t, i, chunk),
               lambda t, i: gk.window_rows(i, t.shape[0], chunk, chunk),
-              gk.gather_block_sum, gk.block_plan(rows, n_chunks, chunk))]
+              gk.gather_block_sum, tiles(gk.block_plan(rows, n_chunks,
+                                                       chunk)))]
     for w in mg.WINDOWS:
         cases.append((
             f"gather_window_sum[W={w}]", f"C{w}", GATHER_WINDOW_SOURCE,
@@ -1673,15 +1757,21 @@ def gather_cases(rows: int, gathered: int):
             lambda t, i, w=w: gk.gather_window_sum(t, i, w, chunk),
             lambda t, i, w=w: gk.gather_window_sum_reference(t, i, w, chunk),
             lambda t, i, w=w: gk.window_rows(i, t.shape[0], w, chunk),
-            gk.gather_window_sum, gk.window_plan(rows, n_chunks, w, chunk)))
+            gk.gather_window_sum,
+            tiles(gk.window_plan(rows, n_chunks, w, chunk))))
     depth = mg.OUTSTANDING
+
+    def rows_cut():
+        grid, segments = gk.gather_rows_sum.plan or (None, None)
+        return {"segments": segments, "grid": grid}
+
     cases.append((
         f"gather_rows_sum[outstanding={depth}]", "D", GATHER_ROWS_SOURCE,
         GATHER_ROWS_REPLACES, mg.stage_case("D", rows, gathered).rows_gathered,
         rows,
         lambda t, i: gk.gather_rows_sum(t, i, chunk, depth),
         lambda t, i: gk.gather_rows_sum_reference(t, i, chunk),
-        lambda t, i: i.long(), gk.gather_rows_sum, None))
+        lambda t, i: i.long(), gk.gather_rows_sum, rows_cut))
     return cases
 
 
@@ -1691,26 +1781,38 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
     probe script's sizes: every chunk's sum within ``KERNEL_ATOL +
     KERNEL_RTOL·Σ|terms|`` of the plain version's (fp32 both, summation
     order only; 131,072 terms a chunk), and the grand total within the same
-    bound, over all terms, of the plain version run in float64; K4 and K5:
-    a second call equal bit for bit. Times the kernel warm (``ms``: the
-    median over ``GATHER_TIMING_TABLES`` copies of the table, each copy's
-    time in ``ms_tables``) and with a cold L2 (``ms_cold``), the plain
-    version and the one PyTorch call for the same function
-    (``index_select`` of the named rows, reshape, ``sum``).
-    Returns one measurement entry per case; K4 and K5 also say which kernel
-    ran, its CUDA kernels a call, its cut and the on-chip bound."""
+    bound, over all terms, of the plain version run in float64; a second
+    call equal bit for bit. Times the kernel warm over
+    ``GATHER_TIMING_TABLES`` copies of the table, each after its own
+    warm-up: ``ms``, the median of CUDA events around 20 calls as the host
+    queues them (each copy's in ``ms_tables``), and ``device_ms``, the
+    median of the same calls queued behind a sleep of the stream so that
+    the events time the card alone (:func:`time_device_ms`; each copy's in
+    ``device_ms_tables``), with the host's enqueue time a call
+    (``host_us_per_call``) and ``torch.profiler``'s kernel durations as a
+    cross-check (``profiler_ms``); then with a cold L2 (``ms_cold``), the
+    plain version and the one PyTorch call for the same function
+    (``index_select`` of the named rows, reshape, ``sum``). Prints the
+    card's clocks, temperature and power at the start and the end
+    (``[gather-state]``). Returns one measurement entry per case, each with
+    its share of the bytes bound (from ``device_ms``), the kernel that ran,
+    its CUDA kernels a call and its cut; K4 and K5 also the on-chip
+    bound."""
+    state = smi_state()
+    print(f"[gather-state] start: clocks.sm, clocks.mem, temperature.gpu, "
+          f"power.draw = {state}")
     gen = torch.Generator(device=device).manual_seed(8)
     table = torch.randn((rows, 128), generator=gen, device=device)
     entries = []
     for (name, stage, source, replaces, n_idx, hi, kernel, plain,
-         named_rows, wrapper, plan) in gather_cases(rows, gathered):
+         named_rows, wrapper, cut) in gather_cases(rows, gathered):
         idx = torch.randint(0, hi, (n_idx,), generator=gen, device=device,
                             dtype=torch.int32)
         n_chunks = n_idx // mg.T
         out = kernel(table, idx)
         again = kernel(table, idx)
         _sync(device)
-        if plan is not None and not torch.equal(out, again):
+        if not torch.equal(out, again):
             raise AssertionError(f"{name}: a second call gave other bits")
         ref = plain(table, idx)
         scale = plain(table.abs(), idx)
@@ -1726,16 +1828,28 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
         distinct = int(torch.unique(named).numel())
         b_ms, b_by = gather_bound_ms(distinct, n_idx, n_chunks)
         copies = [table.clone() for _ in range(GATHER_TIMING_TABLES)]
-        ms_tables = [time_ms(lambda c=c: kernel(c, idx), device, iters)
-                     for c in copies]
+        ms_tables, device_tables, host_us = [], [], []
+        for c in copies:
+            ms_tables.append(time_ms(lambda c=c: kernel(c, idx), device,
+                                     iters))
+            d_ms, h_us = time_device_ms(lambda c=c: kernel(c, idx), device,
+                                        iters)
+            device_tables.append(d_ms)
+            host_us.append(h_us)
         del copies
         ms = float(np.median(ms_tables))
+        device_ms = float(np.median(device_tables))
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "stage": stage,
             "max_abs_err": float((out - ref).abs().max()),
             "err_over_tol": err, "total_err_over_tol": total_err,
             "ms": ms, "ms_tables": ms_tables,
+            "device_ms": device_ms, "device_ms_tables": device_tables,
+            "device_ms_by": ("sleep window" if device.type == "cuda"
+                             else "host clock (CPU rehearsal)"),
+            "host_us_per_call": float(np.median(host_us)),
+            "smi_at_start": state,
             "ms_cold": time_cold_ms(lambda: kernel(table, idx), device,
                                     max(iters // 2, 1)),
             "plain_ms": time_ms(lambda: plain(table, idx), device,
@@ -1750,28 +1864,36 @@ def phase_gather_kernel_check(device: torch.device, rows: int = mg.N,
             "rows_gathered": n_idx, "chunks": n_chunks,
             "distinct_rows": distinct,
         }
-        if plan is not None:
-            entry.update({
-                "share_of_bound": b_ms / ms,
-                "onchip_bound_ms": gather_onchip_bound_ms(n_idx),
-                "cuda_kernels_per_call": wrapper.cuda_kernels,
-                "kernel_ran": wrapper.kernel,
-                "tile_cols": plan[0], "segments": plan[1]})
+        # last: the profiler's own start and end cost the host time
+        entry.update(profiler_kernel_ms(lambda: kernel(table, idx), device,
+                                        iters))
+        entry.update({"share_of_bound": b_ms / device_ms,
+                      "cuda_kernels_per_call": wrapper.cuda_kernels,
+                      "kernel_ran": wrapper.kernel, **cut()})
+        if wrapper is not gk.gather_rows_sum:   # K4, K5 read on-chip memory
+            entry["onchip_bound_ms"] = gather_onchip_bound_ms(n_idx)
         print(f"[gather-kernel] {json.dumps(entry)}")
         entries.append(entry)
         del idx, named, ref, scale, out, again
+    print(f"[gather-state] end: clocks.sm, clocks.mem, temperature.gpu, "
+          f"power.draw = {smi_state()}")
     return entries
 
 
 def gather_adversarial_cases(windows=GATHER_ADV_WINDOWS,
                              chunks=GATHER_ADV_CHUNKS,
-                             k: int = WINDOWS_IN_TABLE):
+                             k: int = WINDOWS_IN_TABLE, rows_chunks=None,
+                             n_sms: int = NOMINAL_SMS):
     """``(kernel, window, chunk, n_rows, n_chunks)`` of the gather probes'
     adversarial checks: K5 at every window of ``windows`` and K4 (window =
     chunk) at every chunk of ``chunks``, each in a table of ``k`` windows
     and 77 rows (so ``n_rows % window`` is not 0 past window 77, and small
     windows get more of them), with fewer chunks than windows, as many, and
-    three times as many and one."""
+    three times as many and one; then K6 (window = the table) at every
+    chunk of ``rows_chunks`` (default ``chunks``) in a table of
+    ``GATHER_ADV_ROWS`` rows, with fewer chunks than the card's ``n_sms``
+    SMs, as many, and ``3·n_sms + 7``, a multiple of neither the SM count
+    nor the grid (a multiple of it)."""
     out = []
     for kernel, spans in (("window", windows), ("block", chunks)):
         for window in spans:
@@ -1781,6 +1903,10 @@ def gather_adversarial_cases(windows=GATHER_ADV_WINDOWS,
                 for n_chunks in (max(n_windows // 2, 1), n_windows,
                                  3 * n_windows + 1):
                     out.append((kernel, window, chunk, n_rows, n_chunks))
+    for chunk in (chunks if rows_chunks is None else rows_chunks):
+        for n_chunks in (max(n_sms // 2, 1), n_sms, 3 * n_sms + 7):
+            out.append(("rows", GATHER_ADV_ROWS, chunk, GATHER_ADV_ROWS,
+                        n_chunks))
     return out
 
 
@@ -1788,27 +1914,46 @@ def gather_variants(kernel: str, window: int):
     """Every kernel a probe wrapper may start at this window, as keyword
     arguments of the wrapper: K5 at every tile width that fits (each its
     own instantiation), K4 with the carve-out at its least and the CUDA
-    driver's default."""
+    driver's default, K6 at every depth."""
     if kernel == "window":
         return [{"tile_cols": tc} for tc in gk.TILE_COLS
                 if window * tc * 4 <= gk.MAX_TILE_BYTES]
+    if kernel == "rows":
+        return [{"outstanding": d} for d in gk.OUTSTANDING]
     return [{"max_l1": max_l1} for max_l1 in (True, False)]
 
 
+def mid_chunk_ranges(n_chunks: int, chunk: int, plan) -> int:
+    """How many of K6's warps, cut by ``plan = (grid, segments)``, walk a
+    range of slots that starts and ends inside a chunk."""
+    return sum(1 for lo, hi in gk.rows_warp_slots(n_chunks, chunk, *plan)
+               if hi > lo and lo % chunk and hi % chunk)
+
+
 def phase_gather_adversarial(device: torch.device, windows=GATHER_ADV_WINDOWS,
-                             chunks=GATHER_ADV_CHUNKS, seed: int = 21):
-    """K4 and K5, every kernel they may run (:func:`gather_variants`),
+                             chunks=GATHER_ADV_CHUNKS, seed: int = 21,
+                             rows_chunks=None, n_sms=None):
+    """K4, K5 and K6, every kernel they may run (:func:`gather_variants`),
     against their plain versions on :func:`gather_adversarial_cases`: a
     table whose rows differ by up to six orders of magnitude (a lost or
-    doubled row shows), indices that the kernels clamp (−5, the window, and
-    2³¹−1) among the drawn ones. Hard limits: every chunk within
-    ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|`` of the plain version; a second
-    call equal bit for bit. Returns the largest error over tolerance per
-    kernel and window."""
+    doubled row shows), indices that the kernels clamp (−5, the window or
+    the table's height, and 2³¹−1) among the drawn ones. K6's cases are cut
+    by the card's SM count (``n_sms``, else ``NOMINAL_SMS`` on the CPU);
+    on the card at least one of its warps must walk a range that starts and
+    ends inside a chunk. Hard limits: every chunk within ``KERNEL_ATOL +
+    KERNEL_RTOL·Σ|terms|`` of the plain version; a second call equal bit
+    for bit. Returns the largest error over tolerance per kernel and window
+    (K6: per chunk size)."""
+    on_card = device.type == "cuda"
+    if n_sms is None:
+        n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
+                 if on_card else NOMINAL_SMS)
     gen = torch.Generator(device=device).manual_seed(seed)
-    report = {}
+    report, mid_chunk = {}, 0
+    calls = {"window": gk.gather_window_sum, "block": gk.gather_block_sum,
+             "rows": gk.gather_rows_sum}
     for kernel, window, chunk, n_rows, n_chunks in gather_adversarial_cases(
-            windows, chunks):
+            windows, chunks, rows_chunks=rows_chunks, n_sms=n_sms):
         mag = 10.0 ** torch.randint(-3, 4, (n_rows, 1), generator=gen,
                                     device=device)
         table = torch.randn((n_rows, 128), generator=gen, device=device) * mag
@@ -1817,21 +1962,20 @@ def phase_gather_adversarial(device: torch.device, windows=GATHER_ADV_WINDOWS,
         for i, wild in enumerate((-5, window, 2 ** 31 - 1)):
             idx[i::7] = wild
         if kernel == "window":
-            ref = gk.gather_window_sum_reference(table, idx, window, chunk)
-            scale = gk.gather_window_sum_reference(table.abs(), idx, window,
-                                                   chunk)
+            def plain(t):
+                return gk.gather_window_sum_reference(t, idx, window, chunk)
+        elif kernel == "block":
+            def plain(t):
+                return gk.gather_block_sum_reference(t, idx, chunk)
         else:
-            ref = gk.gather_block_sum_reference(table, idx, chunk)
-            scale = gk.gather_block_sum_reference(table.abs(), idx, chunk)
+            def plain(t):
+                return gk.gather_rows_sum_reference(t, idx, chunk)
+        ref, scale = plain(table), plain(table.abs())
         for kw in gather_variants(kernel, window):
             tag = (f"gather_{kernel}_sum[W={window},T={chunk},rows={n_rows},"
                    f"chunks={n_chunks},{kw}]")
-            if kernel == "window":
-                outs = [gk.gather_window_sum(table, idx, window, chunk, **kw)
-                        for _ in range(2)]
-            else:
-                outs = [gk.gather_block_sum(table, idx, chunk, **kw)
-                        for _ in range(2)]
+            args = (window, chunk) if kernel == "window" else (chunk,)
+            outs = [calls[kernel](table, idx, *args, **kw) for _ in range(2)]
             if not torch.equal(*outs):
                 raise AssertionError(f"{tag}: a second call gave other bits")
             err = scaled_err(outs[0], ref, scale)
@@ -1839,9 +1983,17 @@ def phase_gather_adversarial(device: torch.device, windows=GATHER_ADV_WINDOWS,
                 raise AssertionError(
                     f"{tag}: disagrees with its plain version on an "
                     f"adversarial shape ({err:.3g} x tolerance)")
-            key = f"{kernel},W={window}"
+            if kernel == "rows" and on_card:
+                mid_chunk += mid_chunk_ranges(n_chunks, chunk,
+                                              gk.gather_rows_sum.plan)
+            key = (f"rows,T={chunk}" if kernel == "rows"
+                   else f"{kernel},W={window}")
             report[key] = max(report.get(key, 0.0), err)
-    print(f"[gather-adversarial] err/tol {json.dumps(report)}")
+    if on_card and any(k.startswith("rows") for k in report) and not mid_chunk:
+        raise AssertionError("K6's adversarial cases cut no warp's range "
+                             "inside a chunk at both ends")
+    print(f"[gather-adversarial] err/tol {json.dumps(report)}; K6 warps "
+          f"walking a range that starts and ends inside a chunk: {mid_chunk}")
     return report
 
 
@@ -1849,38 +2001,60 @@ def phase_gather_sweep(device: torch.device, rows: int = mg.N,
                        gathered: int = mg.E, iters: int = 20):
     """Recorded, no limit on time: K5 at each window of the probe script
     over every tile width that fits (the blocks that share an SM beside
-    it), and K4 with the carve-out at its least and the CUDA driver's, at the
-    probe's sizes; each result held against the plain version (hard
-    limit). Returns the rows."""
+    it), K4 with the carve-out at its least and the CUDA driver's, and K6
+    at probe stage D's size at every depth (its grid, cut and the blocks
+    that fit on a SM beside each), at the probe's sizes; ``ms`` as the host queues the
+    calls and ``device_ms`` behind a sleep (:func:`time_device_ms`); each
+    result held against the plain version (hard limit). Returns the
+    rows."""
     gen = torch.Generator(device=device).manual_seed(9)
     table = torch.randn((rows, 128), generator=gen, device=device)
     on_card = device.type == "cuda"
+    d_rows = mg.stage_case("D", rows, gathered).rows_gathered
     out = []
-    for kernel, window in [("block", mg.T)] + [("window", w)
-                                               for w in mg.WINDOWS]:
-        idx = torch.randint(0, window, (gathered,), generator=gen,
+    for kernel, window in ([("block", mg.T)]
+                           + [("window", w) for w in mg.WINDOWS]
+                           + [("rows", rows)]):
+        n_idx = d_rows if kernel == "rows" else gathered
+        idx = torch.randint(0, window, (n_idx,), generator=gen,
                             device=device, dtype=torch.int32)
         ref = gk.gather_window_sum_reference(table, idx, window, mg.T)
         scale = gk.gather_window_sum_reference(table.abs(), idx, window, mg.T)
         for kw in gather_variants(kernel, window):
+            extra = {}
             if kernel == "window":
                 def run(kw=kw):
                     return gk.gather_window_sum(table, idx, window, mg.T, **kw)
                 occupancy = (gk.blocks_per_sm("window", window,
                                               kw["tile_cols"])
                              if on_card else None)
-            else:
+            elif kernel == "block":
                 def run(kw=kw):
                     return gk.gather_block_sum(table, idx, mg.T, **kw)
                 occupancy = gk.blocks_per_sm("block") if on_card else None
+            else:
+                def run(kw=kw):
+                    return gk.gather_rows_sum(table, idx, mg.T, **kw)
+                occupancy = None   # what the call used, below
             err = scaled_err(run(), ref, scale)
             if not err <= 1.0:
                 raise AssertionError(f"gather sweep {kernel} W={window} {kw}: "
                                      f"disagrees with its plain version "
                                      f"({err:.3g} x tolerance)")
+            if kernel == "rows" and on_card:
+                grid, segments = gk.gather_rows_sum.plan
+                n_sms, fits = gk.rows_occupancy(device.index or 0,
+                                                kw["outstanding"])
+                occupancy = grid // n_sms
+                extra = {"grid": grid, "segments": segments,
+                         "fits_per_sm": fits}
+            elif kernel == "rows":
+                extra = {"grid": None, "segments": None, "fits_per_sm": None}
+            d_ms, h_us = time_device_ms(run, device, iters)
             row = {"kernel": kernel, "window": window, **kw,
-                   "blocks_per_sm": occupancy, "err_over_tol": err,
-                   "ms": time_ms(run, device, iters)}
+                   "blocks_per_sm": occupancy, **extra, "err_over_tol": err,
+                   "ms": time_ms(run, device, iters), "device_ms": d_ms,
+                   "host_us_per_call": h_us}
             print(f"[gather-sweep] {json.dumps(row)}")
             out.append(row)
         del idx, ref, scale
@@ -2005,7 +2179,15 @@ def timed(phase, *args, **kw):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(
+        "chip_smoke.py", description="Smoke run of cogdl_tpu_torch on one "
+        "NVIDIA card (every phase without arguments).")
+    args.add_argument("--gather-only", action="store_true",
+                      help="build, then only the gather probes' kernel check "
+                      "(K4-K6 against their plain versions, timed), in a "
+                      "process that runs nothing before it")
+    args = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs one "
               "NVIDIA card", file=sys.stderr)
@@ -2018,6 +2200,16 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = timed(phase_device)
     timed(phase_build)
+    if args.gather_only:
+        entries = timed(phase_gather_kernel_check, device)
+        print(f"[done] {time.perf_counter() - t0:.1f} s; gather phase only "
+              f"on {smi}")
+        print(smi)
+        print(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "gather_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     entries = timed(phase_kernel_check, device)
     timed(phase_adversarial, device)
     timed(phase_chunk_sweep, device)

@@ -185,25 +185,61 @@ __device__ __forceinline__ void serve_items(const Work& work,
   }
 }
 
-// out[c] = the `per_chunk` partials of chunk c added in order.
+// out[c] = the `per_chunk` partials of chunk c added in order. It is a
+// programmatic dependent launch (finish): it waits for the writes of the
+// kernel before it on the stream first, then lets the next kernel launch.
 __global__ void gather_add_partials(const float* __restrict__ part,
                                     float* __restrict__ out, int n_chunks,
                                     int per_chunk) {
+  constexpr int kBatch = 16;  // loads in flight before their adds
+  asm volatile("griddepcontrol.wait;\n"
+               "griddepcontrol.launch_dependents;\n" ::: "memory");
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chunks) return;
   const float* p = part + (size_t)c * per_chunk;
-  float t = p[0];
-  for (int i = 1; i < per_chunk; ++i) t += p[i];
+  // p[0] + p[1] + ... left to right, the loads of a batch issued together
+  float t = 0.f;
+  for (int b = 0; b < per_chunk; b += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      v[k] = b + k < per_chunk ? p[b + k] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (b + k < per_chunk) t = b + k == 0 ? v[k] : t + v[k];
+  }
   out[c] = t;
 }
 
-// Starts gather_add_partials when a chunk has more than one partial;
-// counts the CUDA kernels started in *started.
+// The launch attribute of a programmatic dependent launch (Hopper): the
+// kernel may start while the one before it on the stream ends, once that
+// one lets it (griddepcontrol.launch_dependents, or its end); it waits for
+// that kernel's writes with griddepcontrol.wait before it reads anything.
+inline cudaLaunchAttribute* overlap_attr() {
+  static cudaLaunchAttribute attr = [] {
+    cudaLaunchAttribute a = {};
+    a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    a.val.programmaticStreamSerializationAllowed = 1;
+    return a;
+  }();
+  return &attr;
+}
+
+// Starts gather_add_partials when a chunk has more than one partial, as a
+// programmatic dependent of the kernel that wrote them; counts the CUDA
+// kernels started in *started.
 inline cudaError_t finish(const float* part, float* out, int n_chunks,
                           int per_chunk, int* started, cudaStream_t stream) {
   if (per_chunk == 1) return cudaSuccess;
-  gather_add_partials<<<(n_chunks + 255) / 256, 256, 0, stream>>>(
-      part, out, n_chunks, per_chunk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_chunks + 255) / 256);
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cfg.attrs = overlap_attr();
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gather_add_partials, part,
+                                             out, n_chunks, per_chunk);
+  if (err != cudaSuccess) return err;
   ++*started;
   return cudaGetLastError();
 }

@@ -12,7 +12,8 @@ chunk's indices name, and differs in where the rows come from:
   shared memory;
 * K6 ``gather_rows_sum`` (``csrc/gather_rows_async.cu``, replaces
   ``make_row_dma``, ``:129``): from anywhere in the table, every row by its
-  own ``cp.async`` copy, ``outstanding`` in flight per warp.
+  own ``cp.async`` copy (16 bytes a lane), ``outstanding`` in flight per
+  warp.
 
 Chunk ``c`` of K4 reads block ``c % (n_rows // chunk)`` and chunk ``c`` of
 K5 window ``c % (n_rows // window)``. The Pallas ``make_onehot`` wraps the
@@ -29,6 +30,14 @@ kernel adds a chunk's partials in (tile, segment) order.
 :func:`window_plan` and :func:`block_plan` give that cut from the shapes
 alone, and :func:`gather_window_sum_tiled_reference` computes it in plain
 PyTorch for the CPU tests.
+
+K6 works by slot range: each chunk is cut into ``segments`` runs of slots
+in the same way, and the (chunk, run) items, in slot order, are split
+evenly over every warp of a grid that fills the card, so a warp's range
+may start and end inside a chunk; a second small kernel adds a chunk's
+partials in run order. :func:`rows_plan` gives the grid and the cut,
+:func:`rows_warp_slots` each warp's slots, and
+:func:`gather_rows_sum_segmented_reference` the sum in that order.
 
 The kernels are built with the others into one library
 (``segment_kernels.build``). Every wrapper takes its plain version only for
@@ -49,10 +58,14 @@ import torch
 from . import segment_kernels as sk
 
 ROW_WIDTH = 128          # floats a table row: 32 lanes x float4
-MAX_CHUNK = 4096         # K6 keeps a chunk's indices in shared memory; K5
-                         # takes the same limit
+MAX_CHUNK = 4096         # the chunk K5 and K6 take at most
 MAX_WINDOW = 4096        # K5: a 128 KB tile holds >= 8 columns of the window
 OUTSTANDING = (1, 2, 4, 8)   # K6's ring depths, one instantiation each
+ROWS_WARPS = 8           # warps a thread block of K6
+# K6's blocks a SM at most: two to five measured alike on the H100, six
+# (all that fit at depth 8) slower, one far slower (PERF.md, PR 8)
+ROWS_BLOCKS_PER_SM = 4
+ROWS_MIN_RUN = 32        # K6 cuts no run of slots shorter (unless the chunk is)
 # K5: a tile is TILE_COLS_DEFAULT columns of the window's rows (128 bytes a
 # row: a quarter-warp's float4 reads cover the 32 banks once), narrower
 # where those rows pass the MAX_TILE_BYTES of shared memory a block may
@@ -76,13 +89,17 @@ def _library() -> ctypes.CDLL:
     # table idx out partial | n_rows n_chunks chunk window tile_cols segments
     lib.gather_window_sum_f32.argtypes = ptrs + [ctypes.c_void_p] + [
         ctypes.c_int] * 6 + started
-    lib.gather_rows_sum_f32.argtypes = ptrs + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    # table idx out partial | n_rows n_chunks chunk segments grid
+    # outstanding
+    lib.gather_rows_sum_f32.argtypes = ptrs + [ctypes.c_void_p] + [
+        ctypes.c_int] * 6 + started
     lib.gather_window_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     lib.gather_block_blocks_per_sm.argtypes = []
+    lib.gather_rows_blocks_per_sm.argtypes = [ctypes.c_int]
     for fn in (lib.gather_block_sum_f32, lib.gather_window_sum_f32,
                lib.gather_rows_sum_f32, lib.gather_window_blocks_per_sm,
-               lib.gather_block_blocks_per_sm):
+               lib.gather_block_blocks_per_sm,
+               lib.gather_rows_blocks_per_sm):
         fn.restype = ctypes.c_int
     lib.gather_error_string.argtypes = [ctypes.c_int]
     lib.gather_error_string.restype = ctypes.c_char_p
@@ -129,21 +146,29 @@ def _chunk_sums(table: torch.Tensor, rows: torch.Tensor,
 def _launch(fn, name: str, key, table, n_chunks: int, call,
             per_chunk: int = 0) -> torch.Tensor:
     """Allocate the output (and, with ``per_chunk`` > 1, a scratch of that
-    many partial floats a chunk), run ``call(lib, out, partial, started,
-    stream)`` on the table's device and count the launch. ``started`` is a
-    ctypes int that K4's and K5's entry points (``per_chunk`` >= 1) set to
-    the CUDA kernels they started; it lands in ``fn.cuda_kernels``."""
-    out = torch.empty(n_chunks, dtype=torch.float32, device=table.device)
+    many partial floats a chunk behind it, in the same allocation), run
+    ``call(lib, out, partial, started, stream)`` on the table's device and
+    count the launch. ``started`` is a ctypes int that K4-K6's entry points
+    (``per_chunk`` >= 1) set to the CUDA kernels they started; it lands in
+    ``fn.cuda_kernels``. Kept lean: it runs on the host once a call."""
+    scratch = n_chunks * per_chunk if per_chunk > 1 else 0
+    buf = torch.empty(n_chunks + scratch, dtype=torch.float32,
+                      device=table.device)
     if n_chunks == 0:
-        return out
-    partial = (torch.empty(n_chunks * per_chunk, dtype=torch.float32,
-                           device=table.device) if per_chunk > 1 else None)
+        return buf
+    out = buf[:n_chunks] if scratch else buf
+    partial = buf.data_ptr() + 4 * n_chunks if scratch else None
     started = ctypes.c_int(0)
     lib = _library()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = call(lib, out, None if partial is None else partial.data_ptr(),
-                   ctypes.byref(started), stream)
+    dev = table.device.index
+    # the current stream's handle, without building a torch.cuda.Stream
+    # object a call
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        err = call(lib, out, partial, ctypes.byref(started), stream)
+    else:
+        with torch.cuda.device(dev):
+            err = call(lib, out, partial, ctypes.byref(started), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {err} "
@@ -340,6 +365,77 @@ def gather_rows_sum_reference(table: torch.Tensor, idx: torch.Tensor,
                        idx.numel() // chunk)
 
 
+@functools.lru_cache(maxsize=256)
+def rows_plan(n_chunks: int, chunk: int, n_sms: int, blocks_per_sm: int,
+              warps: int = ROWS_WARPS) -> Tuple[int, int]:
+    """``(grid, segments)`` of a K6 call: ``blocks_per_sm · n_sms`` thread
+    blocks of ``warps`` warps, one wave over the whole card (``blocks_per_sm``
+    no more than fit at once), and the runs of slots
+    a chunk is cut into (``ceil(chunk / segments)`` slots each, the last
+    shorter, none empty, none under ``ROWS_MIN_RUN`` slots unless the chunk
+    is). Of the cuts, the one whose busiest warp has the fewest rows when
+    the ``n_chunks · segments`` items are split evenly over the warps
+    (:func:`rows_warp_slots`); the fewest runs among equals."""
+    grid = max(n_sms * blocks_per_sm, 1)
+    n_warps = grid * warps
+    best = None
+    for want in range(1, max(chunk // ROWS_MIN_RUN, 1) + 1):
+        seg_len = -(-chunk // want)
+        segments = -(-chunk // seg_len)
+        longest = -(-n_chunks * segments // n_warps) * seg_len
+        if best is None or longest < best[0]:
+            best = (longest, segments)
+    return grid, best[1]
+
+
+def rows_warp_slots(n_chunks: int, chunk: int, grid: int, segments: int,
+                    warps: int = ROWS_WARPS):
+    """The slots ``[lo, hi)`` each of K6's ``grid · warps`` warps walks, in
+    warp order (block-major): warp ``g`` of ``G`` takes the items
+    ``[g·n // G, (g+1)·n // G)`` of the ``n = n_chunks · segments`` (chunk,
+    run) items, whose slots are contiguous, as the kernel computes them."""
+    n_items = n_chunks * segments
+    n_warps = grid * warps
+    seg_len = -(-chunk // segments)
+
+    def slot(i):
+        c, s = divmod(i, segments)
+        return c * chunk + min(s * seg_len, chunk)
+
+    return [(slot(g * n_items // n_warps), slot((g + 1) * n_items // n_warps))
+            for g in range(n_warps)]
+
+
+def gather_rows_sum_segmented_reference(table: torch.Tensor,
+                                        idx: torch.Tensor, chunk: int,
+                                        segments: int) -> torch.Tensor:
+    """K6 in plain PyTorch *the way the kernel cuts it*: one partial a
+    (chunk, run of ``ceil(chunk / segments)`` slots), each the sum of its
+    rows, then a chunk's partials added in run order. For the CPU tests."""
+    n_chunks = idx.numel() // chunk
+    g = table.index_select(0, idx.long().clamp(0, table.shape[0] - 1))
+    g = g.view(n_chunks, chunk, -1)
+    seg_len = -(-chunk // segments)
+    out = None
+    for s in range(segments):
+        part = g[:, s * seg_len:(s + 1) * seg_len].sum((1, 2))
+        out = part if out is None else out + part
+    return out if out is not None else table.new_zeros(0)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_occupancy(device_index: int, outstanding: int) -> Tuple[int, int]:
+    """``(SMs, K6 thread blocks that share one SM)`` on a card, as the CUDA
+    runtime computes them for this depth; once per process."""
+    n_sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    with torch.cuda.device(device_index):
+        per_sm = _library().gather_rows_blocks_per_sm(outstanding)
+    if per_sm < 1:
+        raise RuntimeError(f"gather_rows_sum: the occupancy query failed for "
+                           f"outstanding={outstanding}")
+    return n_sms, per_sm
+
+
 def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
                     chunk: int = 1024, outstanding: int = 8) -> torch.Tensor:
     """``out[c] = Σ_{s<chunk} Σ_f table[idx[c·chunk + s], f]``: per-chunk
@@ -349,8 +445,13 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
     ``table`` float32 ``[n_rows, 128]``, ``idx`` int32 with values in
     ``[0, n_rows)`` (others are clamped into it), both contiguous; ``chunk``
     at most 4096; ``outstanding`` one of 1, 2, 4, 8. CUDA tensors run K6 on
-    the current stream; CPU tensors run :func:`gather_rows_sum_reference`. Each launch adds one to
-    ``gather_rows_sum.launches`` and ``.launches_by[outstanding]``."""
+    the current stream, its work cut by :func:`rows_plan`; CPU tensors run
+    :func:`gather_rows_sum_reference`. Its grid is ``ROWS_BLOCKS_PER_SM``
+    thread blocks a SM, or fewer where fewer fit. Each launch adds one to ``gather_rows_sum.launches`` and
+    ``.launches_by[outstanding]``; ``.cuda_kernels`` holds the CUDA kernels
+    the last call started (1, or 2 when a chunk is cut into runs),
+    ``.kernel`` the name of the kernel it ran and ``.plan`` its
+    ``(grid, segments)``."""
     if outstanding not in OUTSTANDING:
         raise ValueError(f"gather_rows_sum: outstanding must be one of "
                          f"{OUTSTANDING}, got {outstanding}")
@@ -360,17 +461,25 @@ def gather_rows_sum(table: torch.Tensor, idx: torch.Tensor,
     if chunk > MAX_CHUNK:
         raise ValueError(f"gather_rows_sum: the kernel takes chunk <= "
                          f"{MAX_CHUNK}, got {chunk}")
+    n_sms, fit = rows_occupancy(table.device.index, outstanding)
+    grid, segments = rows_plan(n_chunks, chunk, n_sms,
+                               min(fit, ROWS_BLOCKS_PER_SM))
+    gather_rows_sum.kernel = "rows_ranges"
+    gather_rows_sum.plan = (grid, segments)
     return _launch(
         gather_rows_sum, "gather_rows_sum", outstanding, table, n_chunks,
         lambda lib, out, part, started, stream: lib.gather_rows_sum_f32(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0],
-            n_chunks, chunk, outstanding, stream))
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), part,
+            table.shape[0], n_chunks, chunk, segments, grid, outstanding,
+            started, stream),
+        per_chunk=segments)
 
 
 for _fn in (gather_block_sum, gather_window_sum, gather_rows_sum):
     _fn.launches = 0
     _fn.launches_by = collections.Counter()
     sk.COUNTED_WRAPPERS.append(_fn)
-for _fn in (gather_block_sum, gather_window_sum):
+for _fn in (gather_block_sum, gather_window_sum, gather_rows_sum):
     _fn.cuda_kernels = 0
     _fn.kernel = None
+gather_rows_sum.plan = None

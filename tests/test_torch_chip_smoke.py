@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from cogdl_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -387,8 +388,10 @@ def test_accum_bound_counts_each_byte_once():
 def test_gather_kernel_check_phase_rehearsal():
     # what K4's and K5's wrappers ran last, if anything (a card test in the
     # same process may have run them); no kernel runs on the CPU
-    wrappers = {"B": cs.gk.gather_block_sum, "C": cs.gk.gather_window_sum}
+    wrappers = {"B": cs.gk.gather_block_sum, "C": cs.gk.gather_window_sum,
+                "D": cs.gk.gather_rows_sum}
     before = {k: (fn.kernel, fn.cuda_kernels) for k, fn in wrappers.items()}
+    rows_plan = cs.gk.gather_rows_sum.plan
     entries = cs.phase_gather_kernel_check(CPU, rows=4096, gathered=4096,
                                            iters=1)
     assert [(e["name"], e["stage"]) for e in entries] == [
@@ -399,7 +402,21 @@ def test_gather_kernel_check_phase_rehearsal():
         ("gather_rows_sum[outstanding=8]", "D")]
     for e in entries:
         assert KERNEL_KEYS | {"ns_per_row", "gathered_bytes_per_s",
-                              "ms_cold"} <= set(e)
+                              "ms_cold", "device_ms", "host_us_per_call",
+                              "share_of_bound", "cuda_kernels_per_call",
+                              "kernel_ran", "segments"} <= set(e)
+        # no card: the host clock stands in for the device's, and says so
+        assert e["device_ms_by"] == "host clock (CPU rehearsal)"
+        assert e["device_ms"] > 0 and e["host_us_per_call"] > 0
+        assert len(e["device_ms_tables"]) == cs.GATHER_TIMING_TABLES
+        assert e["device_ms"] == sorted(e["device_ms_tables"])[
+            len(e["device_ms_tables"]) // 2]
+        assert e["profiler_ms"] is None and e["smi_at_start"]
+        # the share of the bound is the device time's, for every probe
+        assert e["share_of_bound"] == pytest.approx(e["bound_ms"]
+                                                    / e["device_ms"])
+        assert (e["kernel_ran"], e["cuda_kernels_per_call"]) == before[
+            e["stage"][0]]
         assert e["err_over_tol"] == 0.0   # the plain version on both sides
         assert e["total_err_over_tol"] <= 1.0
         assert e["bound_by"] == "bytes" and e["library_ms"] > 0
@@ -412,13 +429,13 @@ def test_gather_kernel_check_phase_rehearsal():
             e["ms"] * 1e6 / e["rows_gathered"])
         _replaces(e, "        parts = pl.pallas_call(")
         if e["stage"] == "D":
+            # K6's cut is what its last call on a card used (none here)
+            assert (e["grid"], e["segments"]) == (rows_plan or (None, None))
+            assert "onchip_bound_ms" not in e
             continue
-        # K4 and K5: their cut, their share of both bounds, what ran
-        assert e["share_of_bound"] == pytest.approx(e["bound_ms"] / e["ms"])
+        # K4 and K5: the on-chip bound too
         assert e["onchip_bound_ms"] == pytest.approx(
             512 * 4096 / (132 * 128 * 1.98e9) * 1e3)
-        assert (e["kernel_ran"], e["cuda_kernels_per_call"]) == before[
-            e["stage"][0]]
     # 4096 rows, 4 chunks: one block a window up to W = 1024
     assert [(e["tile_cols"], e["segments"]) for e in entries[:4]] == [
         (32, 32), (32, 16), (32, 16), (32, 16)]
@@ -430,9 +447,11 @@ def test_gather_kernel_check_phase_rehearsal():
 
 def test_gather_adversarial_phase_rehearsal():
     report = cs.phase_gather_adversarial(CPU, windows=(1, 32, 256),
-                                         chunks=(1, 31))
+                                         chunks=(1, 31),
+                                         rows_chunks=(1, 31, 1024), n_sms=4)
     assert set(report) == {"window,W=1", "window,W=32", "window,W=256",
-                           "block,W=1", "block,W=31"}
+                           "block,W=1", "block,W=31", "rows,T=1",
+                           "rows,T=31", "rows,T=1024"}
     assert set(report.values()) == {0.0}   # the plain version on both sides
 
 
@@ -443,12 +462,24 @@ def test_gather_adversarial_cases_are_what_the_checks_say():
                        for t in (1, 31, 1024, 4096)}
     assert {w for k, w, t, _, _ in cases if k == "block"} == {1, 31, 1024,
                                                               4096}
+    # K6: every chunk size, fewer chunks than SMs, as many, and 3 x SMs + 7
+    # (a multiple of neither the SM count nor a grid of whole SMs)
+    rows = [(t, n_chunks) for k, w, t, n_rows, n_chunks in cases
+            if k == "rows"]
+    assert rows == [(t, n) for t in (1, 31, 1024, 4096)
+                    for n in (66, 132, 403)]
+    assert all(403 % (132 * b) for b in range(1, 9))
     for kernel, window, chunk, n_rows, n_chunks in cases:
+        if kernel == "rows":
+            assert window == n_rows == cs.GATHER_ADV_ROWS
+            continue
         assert n_rows == 3 * window + 77
         assert kernel == "window" or window == chunk
     # fewer chunks than windows, as many, and 3x + 1, for every window
     by_window = {}
     for k, w, t, n_rows, n_chunks in cases:
+        if k == "rows":
+            continue
         by_window.setdefault((k, w, t, n_rows // w), []).append(n_chunks)
     for (_, w, _, n_windows), got in by_window.items():
         assert got == [max(n_windows // 2, 1), n_windows, 3 * n_windows + 1]
@@ -460,6 +491,13 @@ def test_gather_adversarial_cases_are_what_the_checks_say():
     assert len(cs.gather_variants("window", 256)) == 5
     assert cs.gather_variants("block", 1024) == [{"max_l1": True},
                                                  {"max_l1": False}]
+    assert cs.gather_variants("rows", cs.GATHER_ADV_ROWS) == [
+        {"outstanding": d} for d in (1, 2, 4, 8)]
+    # on the nominal card, K6's cut puts warps' ranges inside chunks at
+    # both ends in these cases (on the card the phase asserts it)
+    assert sum(cs.mid_chunk_ranges(
+        n, t, cs.gk.rows_plan(n, t, 132, cs.gk.ROWS_BLOCKS_PER_SM))
+        for t, n in rows) > 0
 
 
 def test_gather_adversarial_phase_catches_a_kernel_off_by_a_little(
@@ -474,14 +512,99 @@ def test_gather_adversarial_phase_catches_a_kernel_off_by_a_little(
         cs.phase_gather_adversarial(CPU, windows=(32,), chunks=(31,))
 
 
+@pytest.mark.parametrize("depth", [1, 8])
+def test_gather_adversarial_phase_catches_k6_off_by_a_little(monkeypatch,
+                                                             depth):
+    real = cs.gk.gather_rows_sum
+
+    def off_by_a_little(*a, **kw):
+        out = real(*a, **kw)
+        return out * 1.001 if kw.get("outstanding") == depth else out
+
+    monkeypatch.setattr(cs.gk, "gather_rows_sum", off_by_a_little)
+    with pytest.raises(AssertionError,
+                       match=f"'outstanding': {depth}.*adversarial shape"):
+        cs.phase_gather_adversarial(CPU, windows=(), chunks=(),
+                                    rows_chunks=(31,), n_sms=3)
+
+
 def test_gather_sweep_phase_rehearsal():
     rows = cs.phase_gather_sweep(CPU, rows=4096, gathered=2048, iters=1)
     assert [(r["kernel"], r["window"]) for r in rows] == (
         [("block", 1024)] * 2 + [("window", 256)] * 5
-        + [("window", 512)] * 4 + [("window", 1024)] * 3)
-    assert all(r["err_over_tol"] == 0.0 and r["ms"] > 0 for r in rows)
+        + [("window", 512)] * 4 + [("window", 1024)] * 3
+        + [("rows", 4096)] * 4)
+    assert all(r["err_over_tol"] == 0.0 and r["ms"] > 0
+               and r["device_ms"] > 0 and r["host_us_per_call"] > 0
+               for r in rows)
     assert all(r["blocks_per_sm"] is None for r in rows)   # no card
     assert [r["max_l1"] for r in rows[:2]] == [True, False]
+    # K6 at every depth, its cut beside each (none on the CPU)
+    assert [r["outstanding"] for r in rows[-4:]] == [1, 2, 4, 8]
+    assert all(r["segments"] is None and r["fits_per_sm"] is None
+               for r in rows[-4:])
+
+
+class _FakeEvent:
+    """A CUDA event whose times come from a list: the card's clock as the
+    test sets it."""
+    stamps = []
+
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = _FakeEvent.stamps.pop(0)
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def _fake_card(monkeypatch, slept_ms, kernels_ms):
+    """Patch torch.cuda so that time_device_ms runs on the CPU: the card
+    sleeps ``slept_ms``, then the calls take ``kernels_ms``."""
+    # the sleep's two events, then the window's two
+    _FakeEvent.stamps = [0.0, slept_ms, slept_ms, slept_ms + kernels_ms]
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+
+
+def _clock(*readings):
+    it = iter(readings)
+    return lambda: next(it)
+
+
+def test_device_window_times_the_card_behind_the_sleep(monkeypatch):
+    calls = []
+    _fake_card(monkeypatch, slept_ms=5.0, kernels_ms=0.5)
+    # the host queues 20 calls in 0.4 ms, inside the 5 ms sleep
+    d_ms, h_us = timing.time_device_ms(
+        lambda: calls.append(1), torch.device("cuda", 0), iters=20,
+        warmup=3, clock=_clock(10.0, 10.0004))
+    assert len(calls) == 23
+    assert d_ms == pytest.approx(0.5 / 20)
+    assert h_us == pytest.approx(0.4e3 / 20)
+
+
+def test_device_window_raises_when_the_enqueue_outlasts_the_sleep(
+        monkeypatch):
+    _fake_card(monkeypatch, slept_ms=5.0, kernels_ms=0.5)
+    # the host took 6 ms to queue the calls: the card may have waited
+    with pytest.raises(RuntimeError, match="raise sleep_ms"):
+        timing.time_device_ms(lambda: None, torch.device("cuda", 0),
+                              iters=20, clock=_clock(10.0, 10.006))
+
+
+def test_device_window_on_the_cpu_is_the_host_clock():
+    calls = []
+    d_ms, h_us = timing.time_device_ms(lambda: calls.append(1), CPU, iters=4,
+                                       warmup=1, clock=_clock(1.0, 1.002))
+    assert len(calls) == 5
+    assert d_ms == pytest.approx(0.5) and h_us == pytest.approx(500.0)
 
 
 def test_cold_timing_writes_past_the_l2_between_calls():

@@ -17,6 +17,7 @@ from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph, sbm_graph
 from cogdl_tpu_torch.ops import spmm
 from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import maybe_cuda_gat_fused
+from cogdl_tpu_torch.ops.cuda import gather_kernels as gk
 from cogdl_tpu_torch.ops.cuda.gather_kernels import (
     gather_block_sum,
     gather_block_sum_reference,
@@ -487,6 +488,51 @@ def test_gather_rows_kernel_matches_plain_version(dev, outstanding, chunk,
                      idx.long(), n_chunks)
 
 
+@pytest.mark.parametrize("outstanding", [1, 2, 4, 8])
+@pytest.mark.parametrize("chunk,n_chunks", [(1024, 192), (1024, 3),
+                                            (4096, 5), (31, 400), (1, 7),
+                                            (1000, 133)])
+def test_gather_rows_ranges_match_plain_and_repeat_bit_for_bit(
+        dev, outstanding, chunk, n_chunks):
+    """K6's work by slot range: chunks cut into runs that warps' ranges
+    cross (few long chunks), whole chunks a warp (many short ones); the
+    segment-order plain version agrees, and a second call gives the same
+    bits."""
+    table, idx = _gather_case(dev, chunk * n_chunks, GATHER_ROWS + 5,
+                              seed=chunk + outstanding)
+    out = gather_rows_sum(table, idx, chunk, outstanding)
+    grid, segments = gather_rows_sum.plan
+    assert gather_rows_sum.kernel == "rows_ranges"
+    assert gather_rows_sum.cuda_kernels == (1 if segments == 1 else 2)
+    n_sms, fit = gk.rows_occupancy(dev.index or 0, outstanding)
+    assert fit >= 1
+    assert (grid, segments) == gk.rows_plan(
+        n_chunks, chunk, n_sms, min(fit, gk.ROWS_BLOCKS_PER_SM))
+    assert torch.equal(out, gather_rows_sum(table, idx, chunk, outstanding))
+    torch.cuda.synchronize()
+    rows = idx.long().clamp(0, GATHER_ROWS - 1)
+    _close_per_chunk(out, gather_rows_sum_reference(table, idx, chunk),
+                     table, rows, n_chunks)
+    _close_per_chunk(out, gk.gather_rows_sum_segmented_reference(
+        table, idx, chunk, segments), table, rows, n_chunks)
+
+
+def test_gather_rows_fill_the_card_at_the_probe_size(dev):
+    """Stage D's cut: ROWS_BLOCKS_PER_SM blocks on every SM at depth 8
+    (more fit), every warp one run of at most 64 slots."""
+    n_sms, fit = gk.rows_occupancy(dev.index or 0, 8)
+    assert n_sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fit >= gk.ROWS_BLOCKS_PER_SM
+    table, idx = _gather_case(dev, 192 * 1024, GATHER_ROWS)
+    out = gather_rows_sum(table, idx)
+    grid, segments = gather_rows_sum.plan
+    assert grid == n_sms * gk.ROWS_BLOCKS_PER_SM
+    assert max(hi - lo for lo, hi in gk.rows_warp_slots(
+        192, 1024, grid, segments)) <= 64
+    _close_per_chunk(out, gather_rows_sum_reference(table, idx, 1024),
+                     table, idx.long(), 192)
+
+
 def test_gather_kernels_are_deterministic_and_agree_where_they_overlap(dev):
     table, idx = _gather_case(dev, 1024 * 6, 1024)
     a = gather_block_sum(table, idx)
@@ -576,6 +622,28 @@ def test_gather_wrappers_refuse_on_the_card(dev):
         gather_rows_sum(table, torch.cat([idx] * 4), chunk=8192)
     with pytest.raises(ValueError, match="on cpu"):
         gather_block_sum(table, idx.cpu())
+
+
+@pytest.mark.parametrize("chunk,segments", [(10, 6), (10, 11), (10, 0),
+                                            (4097, 1)])
+def test_rows_entry_point_refuses_a_cut_with_an_empty_run(dev, chunk,
+                                                          segments):
+    """K6's C entry point returns cudaErrorInvalidValue (1) for a cut it
+    would sum wrong or not at all: a run left empty (10 slots in 6 runs of
+    2), more runs than slots, none, or a chunk past the limit; the output
+    stays as it was."""
+    import ctypes
+    table, idx = _gather_case(dev, chunk * 3, GATHER_ROWS)
+    out = torch.full((3,), 7.0, device=dev)
+    part = torch.empty(3 * max(segments, 1), device=dev)
+    started = ctypes.c_int(5)
+    err = gk._library().gather_rows_sum_f32(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), part.data_ptr(),
+        GATHER_ROWS, 3, chunk, segments, 4, 8, ctypes.byref(started),
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1 and started.value == 0
+    assert torch.equal(out, torch.full((3,), 7.0, device=dev))
 
 
 def test_probe_script_on_card_launches_each_stage_kernel(dev):

@@ -367,3 +367,115 @@ def test_window_wrapper_refuses_a_tile_it_does_not_take():
         gather_window_sum(t, i, 256, T, tile_cols=24)
     with pytest.raises(ValueError, match="tile_cols"):
         gather_window_sum(t, i, 4096 // 4 * 4, T, tile_cols=128)
+
+
+# ---------------------------------------------------------------------------
+# The cut of the redesigned K6: (chunk, run of slots) items split evenly
+# over every warp of a grid that fills the card, each warp a contiguous
+# range of slots; partials added in run order. Tolerance as above.
+# ---------------------------------------------------------------------------
+
+# (n_chunks, chunk, SMs, blocks a SM): the probe's stage D at the depths'
+# occupancies, chunks of 1 to 4096 slots, fewer chunks than SMs, as many,
+# and a count that is a multiple of neither, no chunk at all
+ROWS_SHAPES = [(192, 1024, 132, b) for b in (1, 4, 5, 6, 8)] + [
+    (3072, 1024, 132, 6), (5, 4096, 132, 6), (132, 31, 132, 6),
+    (403, 1, 132, 6), (66, 4096, 132, 7), (3, 1000, 4, 2), (1, 1, 1, 1),
+    (0, 1024, 132, 6)]
+
+
+@pytest.mark.parametrize("n_chunks,chunk,n_sms,per_sm", ROWS_SHAPES)
+def test_rows_plan_covers_every_slot_once_in_order(n_chunks, chunk, n_sms,
+                                                   per_sm):
+    grid, segments = gk.rows_plan(n_chunks, chunk, n_sms, per_sm)
+    assert grid == n_sms * per_sm and 1 <= segments <= chunk
+    seg_len = -(-chunk // segments)
+    assert (segments - 1) * seg_len < chunk          # no run empty
+    assert seg_len >= min(gk.ROWS_MIN_RUN, chunk)
+    ranges = gk.rows_warp_slots(n_chunks, chunk, grid, segments)
+    assert len(ranges) == grid * gk.ROWS_WARPS
+    # warp by warp, the ranges tile [0, n_chunks * chunk) in slot order
+    ends = [0] + [hi for _, hi in ranges]
+    assert [lo for lo, _ in ranges] == ends[:-1]
+    assert ends[-1] == n_chunks * chunk
+    assert all(hi >= lo for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("per_sm", range(1, 9))
+def test_rows_plan_spreads_the_probe_evenly(per_sm):
+    """Stage D (192 chunks of 1024 slots) on 132 SMs: no block's rows
+    exceed another's by more than one run (and the rounding of the last
+    run of a chunk); every SM's blocks together within one run of each
+    other, where one block a chunk gave 60 SMs two chunks and 72 one."""
+    n_chunks, chunk, n_sms = 192, 1024, 132
+    grid, segments = gk.rows_plan(n_chunks, chunk, n_sms, per_sm)
+    seg_len = -(-chunk // segments)
+    rounding = segments * seg_len - chunk
+    ranges = gk.rows_warp_slots(n_chunks, chunk, grid, segments)
+    w = gk.ROWS_WARPS
+    blocks = [sum(hi - lo for lo, hi in ranges[b * w:(b + 1) * w])
+              for b in range(grid)]
+    assert max(blocks) - min(blocks) <= seg_len + rounding
+    if rounding == 0:
+        assert max(blocks) - min(blocks) <= seg_len
+    # the busiest warp has at most one run more than the mean warp
+    longest = max(hi - lo for lo, hi in ranges)
+    assert longest <= n_chunks * chunk / len(ranges) + seg_len
+    # one resident wave: SM s runs blocks s, s + 132, ... (any even spread)
+    per_sm_rows = [sum(blocks[s::n_sms]) for s in range(n_sms)]
+    assert max(per_sm_rows) < 2 * min(per_sm_rows)
+
+
+def test_rows_plan_cuts_ranges_inside_chunks():
+    """Where chunks are long and few, warps' ranges start and end inside a
+    chunk; chunks of one slot are never cut."""
+    grid, segments = gk.rows_plan(132, 1024, 132, 6)
+    ranges = gk.rows_warp_slots(132, 1024, grid, segments)
+    assert segments > 1
+    assert any(lo % 1024 and hi % 1024 for lo, hi in ranges if hi > lo)
+    assert gk.rows_plan(403, 1, 132, 6)[1] == 1
+
+
+@pytest.mark.parametrize("segments", [1, 3, 32])
+def test_rows_segmented_reference_matches_plain_and_pallas(jax_probes,
+                                                           segments):
+    n_chunks = 2                  # the interpret loop is 1024 copies a chunk
+    table, idx = _inputs(n_chunks, ROWS, seed=40 + segments)
+    idx[::97] = -5                # clamped into the table, as the kernel does
+    idx[1::97] = ROWS
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    out = gk.gather_rows_sum_segmented_reference(t, i, T, segments)
+    rows = np.clip(idx, 0, ROWS - 1)
+    _held(out, table, rows, n_chunks)
+    plain = gather_rows_sum_reference(t, i, T)
+    scale = gather_rows_sum_reference(t.abs(), i, T)
+    assert float(((out - plain).abs() / (ATOL + RTOL * scale)).max()) <= 1.0
+    total_j = float(jax_probes.make_row_dma(n_chunks, 8)(
+        jnp.asarray(table), jnp.asarray(rows.astype(np.int32))))
+    assert abs(float(out.sum()) - total_j) <= _tol(table, rows)
+
+
+@pytest.mark.parametrize("n_chunks,chunk,n_sms,per_sm", ROWS_SHAPES[-6:-1])
+def test_rows_segmented_reference_on_uneven_cuts(n_chunks, chunk, n_sms,
+                                                 per_sm):
+    rng = np.random.default_rng(n_chunks + chunk)
+    table = rng.standard_normal((700, 128)).astype(np.float32)
+    table *= 10.0 ** rng.integers(-3, 4, (700, 1))
+    idx = rng.integers(-3, 703, n_chunks * chunk).astype(np.int32)
+    segments = gk.rows_plan(n_chunks, chunk, n_sms, per_sm)[1]
+    out = gk.gather_rows_sum_segmented_reference(
+        torch.from_numpy(table), torch.from_numpy(idx), chunk, segments)
+    _held(out, table, np.clip(idx, 0, 699), n_chunks)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 7, 192, 5000])
+def test_rows_plan_leaves_no_run_empty(n_chunks):
+    """Every cut the plan gives passes the kernel's entry check: its
+    ``segments - 1`` runs of ``ceil(chunk / segments)`` slots fall short of
+    the chunk, so no run is empty (the entry point refuses a cut that
+    leaves one, such as 10 slots in 6 runs of 2)."""
+    for chunk in list(range(1, 300)) + [1000, 1023, 1024, 1025, 4095, 4096]:
+        segments = gk.rows_plan(n_chunks, chunk, 132,
+                                gk.ROWS_BLOCKS_PER_SM)[1]
+        assert 1 <= segments <= chunk
+        assert (segments - 1) * -(-chunk // segments) < chunk
