@@ -24,7 +24,12 @@ slots, windows of 1 to 4096 rows, fewer chunks than SMs and more, clamped
 indices) with every kernel they may run, and swept over K5's tile widths,
 K4's carve-outs and K6's depths; every stage of
 that script with exact launch counts) and full-batch GraphSAGE through
-``experiment()``. Prints one JSON line of kernel measurements and, last,
+``experiment()``. Last, sampled mini-batch training with the device
+sampler: GraphSAGE and GAT through ``experiment()`` with exact launch counts
+(none on a train step), the sampler's blocks checked on the card against
+the graph and card logits over them against the CPU's, and
+``bench --sampled`` at 100k nodes and at the products scale with
+``torch.profiler``'s busy time. Prints one JSON line of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails. ``--gather-only`` builds the kernels and runs only the
 gather probes' kernel check; its last line says ``"gather_only": true``.
@@ -49,7 +54,12 @@ import numpy as np
 import torch
 
 from cogdl_tpu_torch import bench
-from cogdl_tpu_torch.data.graph import add_self_loops, sym_norm
+from cogdl_tpu_torch.data.device_sampling import (
+    DeviceNeighborSampler,
+    frame_features,
+    sample_blocks_device,
+)
+from cogdl_tpu_torch.data.graph import add_self_loops, from_coo, sym_norm
 from cogdl_tpu_torch.datasets.dataset import Dataset
 from cogdl_tpu_torch.datasets.synthetic import (
     powerlaw_graph,
@@ -155,6 +165,28 @@ NOMINAL_SMS = 132
 # aggregators whose card logits are held against the CPU's
 SAGE_SUM_EPOCHS = 30
 SAGE_AGGREGATORS = ("mean", "sum", "max", "gcn")
+
+# the sampled path: bench --sampled's defaults, B=1024 seeds and fanouts
+# (15, 10) seeds outward, over the 100k graph; a few epochs through
+# experiment() (10 steps each: about 10% of the nodes are train nodes)
+SAMPLED_BATCH = 1024
+SAMPLED_FANOUTS = (15, 10)
+SAMPLED_EPOCHS = 5
+# (label, model, model kwargs) of the sampled main path, at the bench's
+# widths; GraphSAGE at its default dropout (0.5), GAT as the sampled bench
+# runs it, dropout and attention dropout 0
+SAMPLED_MODELS = (
+    ("sage-mean", "graphsage", {"hidden_size": HIDDEN, "aggr": "mean"}),
+    ("sage-sum", "graphsage", {"hidden_size": HIDDEN, "aggr": "sum"}),
+    ("gat", "gat", {"hidden_size": GAT_HEAD_DIM, "nhead": GAT_HEADS,
+                    "dropout": 0.0, "attn_drop": 0.0}),
+)
+# the sampled bench's graphs: (nodes, average degree, --products)
+SAMPLED_SCALES = ((NUM_NODES, AVG_DEGREE, False),
+                  (bench.PRODUCTS_NODES, bench.PRODUCTS_AVG_DEGREE, True))
+# the sampled check's graph: every HOLE_EVERY-th node loses its CSR row (its
+# in-edges), so that destinations without an edge are drawn
+HOLE_EVERY = 10
 
 # the products-scale path (bench --products): 2.45M nodes x 50, a few steps
 PRODUCTS_NODES = bench.PRODUCTS_NODES
@@ -1686,6 +1718,20 @@ def time_cold_ms(fn, device: torch.device, iters: int = 10) -> float:
     return total * 1e3 / iters
 
 
+def busy_us(spans) -> float:
+    """The card's busy time in the profiler's µs: the union of the
+    ``(start, end)`` spans, so that operations that overlap (a programmatic
+    dependent launch starts before the kernel it waits for ends) count
+    once."""
+    busy, reach = 0, None
+    for lo, hi in sorted(spans):
+        if reach is None or lo > reach:
+            busy, reach = busy + hi - lo, hi
+        elif hi > reach:
+            busy, reach = busy + hi - reach, hi
+    return busy
+
+
 def profiler_kernel_ms(fn, device: torch.device, iters: int = 20):
     """Cross-check of a device time: the time ``torch.profiler``'s CUDA
     kernels kept the card busy over ``iters`` calls of ``fn``, per call,
@@ -1715,17 +1761,7 @@ def profiler_kernel_ms(fn, device: torch.device, iters: int = 20):
         by_name[e.name.split("::")[-1].split("(")[0]] += (
             e.time_range.elapsed_us() / 1e3 / iters)
         spans.append((e.time_range.start, e.time_range.end))
-    # the card's busy time: kernels that overlap (a programmatic dependent
-    # launch starts before the kernel it waits for ends) count once
-    busy, reach = 0, None
-    for lo, hi in sorted(spans):
-        if reach is None or lo > reach:
-            busy += hi - lo
-            reach = hi
-        elif hi > reach:
-            busy += hi - reach
-            reach = hi
-    return {"profiler_ms": busy / 1e3 / iters,
+    return {"profiler_ms": busy_us(spans) / 1e3 / iters,
             "profiler_kernels_per_call": len(kernels) / iters,
             "profiler_ms_by_kernel": dict(by_name)}
 
@@ -2171,6 +2207,278 @@ def phase_sage_quality(device: torch.device, epochs: int = 100):
     return _sbm_quality("sage-quality", "graphsage", device, epochs)
 
 
+# ---------------------------------------------------------------------------
+# Sampled mini-batch training: the device sampler, GraphSAGE and GAT over
+# its blocks, full-batch evaluation
+# ---------------------------------------------------------------------------
+
+def _sampled_expected(model: str, aggr, evals: int, on_card: bool):
+    """The launches of a sampled run, by counted wrapper and case: none on
+    any train step (the blocks carry no kernel structure, and the fanout
+    routes are torch reshape-reduces); each full-batch evaluation launches
+    what the full-batch model does, K1 for each layer of GraphSAGE ``sum``
+    (F=100 and F=128) and K3's fwd for each layer of GAT."""
+    if not on_card:
+        return {}
+    if model == "gat":
+        return {"gat_pass": {("fwd", h, d): evals for h, d in GAT_SHAPES}}
+    if aggr == "sum":
+        return {"spmm_csr": {("csr", f): evals for f in (FEAT_DIM, HIDDEN)}}
+    return {}
+
+
+def _launch_counts():
+    """Every counted wrapper's launches since the last reset, by case."""
+    return {fn.__name__: dict(fn.launches_by) for fn in sk.COUNTED_WRAPPERS
+            if fn.launches}
+
+
+def phase_sampled_main_path(device: torch.device, num_nodes: int = NUM_NODES,
+                            epochs: int = SAMPLED_EPOCHS,
+                            batch_size: int = SAMPLED_BATCH,
+                            fanouts=SAMPLED_FANOUTS, models=SAMPLED_MODELS):
+    """Sampled training through experiment(wrapper="neighbor_sampling_device")
+    on the powerlaw graph: GraphSAGE ``mean``, GraphSAGE ``sum`` and GAT,
+    each for one epoch and then for ``epochs`` from the same seed. Checks the
+    exact launch counts (0 of K1-K6 on every sampled train step, so the
+    whole run launches only what its evaluations do: 2 K1 an evaluation for
+    ``sum``, 2 K3 fwd for GAT, none for ``mean``; a CPU run none), that the
+    losses are finite and that the last epoch's mean loss is below the first
+    epoch's. Returns each run's step and evaluation times and losses."""
+    g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                       num_classes=NUM_CLASSES, seed=0)
+    ds = Dataset.from_graph(g, name=f"powerlaw-{num_nodes}")
+    on_card = device.type == "cuda"
+    info = {}
+    for label, model, kw in models:
+        runs = []
+        for n_epochs in (1, epochs):
+            sk.reset_launch_counts()
+            results = experiment(
+                dataset=ds, model=model, wrapper="neighbor_sampling_device",
+                fanouts=fanouts, batch_size=batch_size, epochs=n_epochs,
+                patience=n_epochs + 1, seed=0, device=str(device), **kw)
+            (res,) = next(iter(results.values()))
+            counts = _launch_counts()
+            expected = _sampled_expected(model, kw.get("aggr"), n_epochs + 1,
+                                         on_card)
+            if counts != expected:
+                raise AssertionError(
+                    f"sampled {label} ({n_epochs} epochs) launched {counts}; "
+                    f"expected {expected}: none on a train step, the "
+                    "full-batch model's on each evaluation")
+            if not np.isfinite(res["train_loss"]):
+                raise AssertionError(f"sampled {label}: loss not finite: "
+                                     f"{res}")
+            runs.append(res)
+        first, last = runs[0]["train_loss"], runs[1]["train_loss"]
+        if not last < first:
+            raise AssertionError(f"sampled {label}: the mean loss of epoch "
+                                 f"{epochs} ({last}) is not below epoch 1's "
+                                 f"({first})")
+        res = runs[1]
+        info[label] = {
+            "train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "losses": [first, last], "epochs": epochs,
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()}}
+    print(f"[sampled-main] {json.dumps(info)}")
+    return info
+
+
+def _holed_graph(num_nodes: int, device: torch.device):
+    """The powerlaw graph with every ``HOLE_EVERY``-th node's CSR row
+    emptied, on ``device``."""
+    g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                       num_classes=NUM_CLASSES, seed=0)
+    E, n = g.num_edges, num_nodes
+    row, col = g.row[:E].numpy(), g.col[:E].numpy()
+    keep = row % HOLE_EVERY != 0
+    return from_coo(np.stack([row[keep], col[keep]]), num_nodes=n,
+                    x=g.x[:n], y=g.y[:n], train_mask=g.train_mask[:n],
+                    meta={"num_classes": NUM_CLASSES}).to(device)
+
+
+def check_blocks(graph, blocks, frame, seeds: torch.Tensor):
+    """What the device sampler promises of one batch, on the batch's device:
+    the first B frame rows are the seeds and the rest past the last hop the
+    table's sink row; in each block, slot ``e`` of destination ``r`` is
+    live exactly when ``frame[r]`` has an edge, a live slot points at its
+    own frame row ``n + e`` and ``(frame[r], frame[n + e])`` is an edge of
+    the graph, a dead slot points at the frame's sink with weight 0 and its
+    frame row repeats ``frame[r]``. Returns the live and dead slot counts."""
+    B = seeds.shape[0]
+    if not torch.equal(frame[:B], seeds.to(frame.dtype)):
+        raise AssertionError("sampled check: the first B frame rows are not "
+                             "the seeds")
+    E, N = graph.num_edges, graph.n_pad
+    keys = torch.sort(graph.row[:E].long() * N + graph.col[:E].long())[0]
+    deg = graph.row_ptr[1:] - graph.row_ptr[:-1]
+    live = dead = 0
+    S = blocks[0].num_nodes
+    if not bool((frame[S:] == graph.n_pad - 1).all()):
+        raise AssertionError("sampled check: frame padding is not the sink")
+    for b in blocks:
+        f, n = b.meta_get("fanout"), b.meta_get("frontier")
+        e = torch.arange(n * f, device=frame.device)
+        u = frame[e // f].long()
+        w, c = b.edge_weight[: n * f], b.col[: n * f].long()
+        alive = w > 0
+        has_edge = deg[u] > 0
+        own = frame[n + e].long()
+        query = u * N + own
+        hit = keys[torch.searchsorted(keys, query).clamp_max(E - 1)] == query
+        bad = {
+            "live slot without an edge": alive & ~has_edge,
+            "dead slot on a destination with an edge": ~alive & has_edge,
+            "live slot off its frame row": alive & (c != n + e),
+            "sampled pair not an edge": alive & ~hit,
+            "dead slot off the sink": ~alive & (c != b.n_pad - 1),
+            "dead slot's frame row not its destination": ~alive & (own != u),
+            "weight not 0 or 1": (w != 0) & (w != 1),
+        }
+        for what, m in bad.items():
+            if bool(m.any()):
+                raise AssertionError(f"sampled check, block of fanout {f}: "
+                                     f"{int(m.sum())} x {what}")
+        live += int(alive.sum())
+        dead += int((~alive).sum())
+    return live, dead
+
+
+def phase_sampled_check(device: torch.device, num_nodes: int = NUM_NODES,
+                        batch_size: int = SAMPLED_BATCH,
+                        fanouts=SAMPLED_FANOUTS):
+    """Blocks drawn on ``device`` at full size from a graph with empty rows
+    (:func:`check_blocks`; some dead slots must occur), then the same
+    weights of GraphSAGE (each aggregator) and GAT, dropout off, over that
+    one block set on ``device`` and on the CPU: logits within rtol 1e-4 /
+    atol 1e-4. Returns the slot counts and the largest differences."""
+    g = _holed_graph(num_nodes, device)
+    sampler = DeviceNeighborSampler(g, fanouts, batch_size=batch_size)
+    seeds = torch.from_numpy(sampler.epoch_seeds()[0]).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    blocks, frame = sample_blocks_device(g, seeds, gen, fanouts)
+    live, dead = check_blocks(g, blocks, frame, seeds)
+    if not dead:
+        raise AssertionError("sampled check: no dead slot drawn")
+    cpu_blocks = [b.to("cpu") for b in blocks]
+    diffs = {}
+    for label, model, kw in (
+            [(f"sage-{a}", "graphsage", {"hidden_size": HIDDEN, "aggr": a})
+             for a in SAGE_AGGREGATORS]
+            + [("gat", "gat", {"hidden_size": GAT_HEAD_DIM,
+                               "nhead": GAT_HEADS, "attn_drop": 0.0})]):
+        net = build_model(model, in_features=FEAT_DIM,
+                          out_features=NUM_CLASSES, dropout=0.0, **kw)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            ref = net(cpu_blocks, frame_features(cpu_blocks))
+            out = copy.deepcopy(net).to(device)(
+                list(blocks), frame_features(blocks)).cpu()
+        diffs[label] = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"sampled {label}: {device.type} logits "
+                                 f"differ from CPU logits by {diffs[label]}")
+    info = {"live_slots": live, "dead_slots": dead, "max_abs_diff": diffs}
+    print(f"[sampled-check] {json.dumps(info)}")
+    return info
+
+
+def profile_window(fn, device: torch.device):
+    """``torch.profiler``'s view of one call of ``fn`` (which ends in a
+    synchronisation): the card's busy time (kernels and copies, overlaps
+    counted once), the host clock's window around the call and the idle
+    share, ``1 − busy / window``, and the six device operations that took
+    longest in all, by name. None, with the reason, where the profiler saw
+    no device time (and on the CPU)."""
+    if device.type != "cuda":
+        return {"busy_ms": None, "note": "no card (rehearsal)"}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device operations only: a user annotation (the optimizer's step) is a
+    # span on the device's timeline that covers other operations and gaps
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation]
+    if not device_events:
+        return {"busy_ms": None,
+                "note": "the profiler recorded no device time"}
+    by_name = collections.Counter()
+    for e in device_events:
+        by_name[e.name.split("(")[0][:80]] += e.time_range.elapsed_us() / 1e3
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in device_events]) / 1e3
+    return {"busy_ms": busy_ms, "window_ms": window_ms,
+            "idle_share": 1.0 - busy_ms / window_ms,
+            "device_ops": len(device_events),
+            "top_ms": dict(by_name.most_common(6))}
+
+
+def phase_sampled_bench(device: torch.device, scales=SAMPLED_SCALES,
+                        batch_size: int = SAMPLED_BATCH,
+                        fanouts=SAMPLED_FANOUTS, steps: int = 10,
+                        warmup: int = 3, repeats: int = 2):
+    """``bench --sampled`` for GraphSAGE and GAT on each graph of
+    ``scales`` (one graph a scale, shared by both models) through
+    ``bench.run_sampled``: ``step_ms``, ``value`` (edge slots a second),
+    ``seeds_per_sec``, ``setup_s`` (the graph's own build in ``graph_s``)
+    and ``peak_hbm_bytes``; no kernel may be launched and the loss must be
+    finite. Then, recorded with no limit, ``torch.profiler``'s busy time and
+    idle share over ``steps`` further steps (:func:`profile_window`).
+    Returns one record per (scale, model)."""
+    records = []
+    for nodes, avg_degree, products in scales:
+        argv = ["--sampled", "--batch-size", str(batch_size), "--fanouts",
+                ",".join(map(str, fanouts)), "--steps", str(steps),
+                "--warmup", str(warmup), "--repeats", str(repeats),
+                "--device", str(device)] + (["--products"] if products else [])
+        base = bench.parse_args(argv)
+        base.nodes, base.avg_degree = nodes, avg_degree
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        graph = bench.make_sampled_graph(base, device)
+        _sync(device)
+        graph_s = time.perf_counter() - t0
+        for model in ("sage", "gat"):
+            args = copy.copy(base)
+            args.model = model
+            sk.reset_launch_counts()
+            payload = bench.run_sampled(args, graph=graph)
+            if _launch_counts():
+                raise AssertionError(f"sampled bench {model}: launched "
+                                     f"{_launch_counts()}; expected none")
+            if not np.isfinite(payload["loss"]):
+                raise AssertionError(f"sampled bench {model}: loss not "
+                                     f"finite: {payload}")
+            wrapper, opt, rows = bench.sampled_state(args, graph, device)
+            gen = torch.Generator(device=device).manual_seed(1)
+            bench.sampled_steps(wrapper, opt, graph, rows[:warmup], gen)
+            prof = profile_window(functools.partial(
+                bench.sampled_steps, wrapper, opt, graph,
+                rows[warmup: warmup + steps], gen), device)
+            if prof["busy_ms"] is not None:
+                prof["busy_ms_per_step"] = prof["busy_ms"] / steps
+            del wrapper, opt, rows
+            rec = {"model": model, "nodes": nodes, "avg_degree": avg_degree,
+                   "products": products, "edges": graph.num_edges,
+                   "graph_s": graph_s, "profile": prof,
+                   **{k: payload[k] for k in (
+                       "step_ms", "value", "seeds_per_sec", "setup_s",
+                       "edge_slots_per_step", "loss", "peak_hbm_bytes")
+                      if k in payload}}
+            print(f"[sampled-bench] {json.dumps(rec)}")
+            records.append(rec)
+        del graph
+    return records
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print how long it took."""
     t0 = time.perf_counter()
@@ -2250,6 +2558,10 @@ def main(argv=None) -> int:
     sage_info = timed(phase_sage_main_path, device)
     timed(phase_sage_parity, device)
     timed(phase_sage_quality, device)
+    # sampled mini-batch training
+    sampled_info = timed(phase_sampled_main_path, device)
+    timed(phase_sampled_check, device)
+    sampled_bench = timed(phase_sampled_bench, device)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
           f"eval_ms={main_info['eval_ms']:.3f}; GAT main path "
@@ -2265,7 +2577,14 @@ def main(argv=None) -> int:
           f"{min(gat_sweep, key=lambda r: r['step_ms'])['panels']}); GraphSAGE main path (mean) train_step_ms="
           f"{sage_info['mean']['train_step_ms']:.3f} "
           f"eval_ms={sage_info['mean']['eval_ms']:.3f}, (sum) "
-          f"train_step_ms={sage_info['sum']['train_step_ms']:.3f} on {smi}")
+          f"train_step_ms={sage_info['sum']['train_step_ms']:.3f}; sampled "
+          f"train_step_ms "
+          + ", ".join(f"{k} {v['train_step_ms']:.3f}"
+                      for k, v in sampled_info.items())
+          + "; sampled bench step_ms "
+          + ", ".join(f"{r['model']}@{r['nodes']} {r['step_ms']:.3f}"
+                      for r in sampled_bench)
+          + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""Benchmark: full-batch GCN / GAT train-step throughput in edges/sec on a
-power-law graph — the port of the full-batch part of the JAX package's
-``bench.py``.
+"""Benchmark: train-step throughput on a power-law graph — the port of the
+full-batch part of the JAX package's ``bench.py`` and of its on-device
+sampled route (``bench_sampled_device``).
 
     python -m cogdl_tpu_torch.bench [--model gcn|gat] [--products] [--device cpu]
+    python -m cogdl_tpu_torch.bench --sampled [--model sage|gat] [--products]
+        [--batch-size 1024] [--fanouts 15,10] [--device cpu]
 
 Measures the whole train step (forward, backward, Adam) on one NVIDIA card
 (``--device cpu`` runs the kernels' plain versions, for rehearsal only) and
@@ -19,8 +21,19 @@ raw edge arrays; the aggregation then runs K2 (GCN) or K3's accumulating
 form (GAT) once per panel. Without them the graph comes from the host
 generator and takes the single-shot kernels K1 and K3.
 
-Not ported from the JAX script: ``--sampled`` and its flags (they wait for
-the sampler slice), ``--bf16``, ``--act-compress``, ``--remat``,
+``--sampled`` is mini-batch neighbor-sampled training with the device
+sampler (``data/device_sampling.py``): the graph's CSR and features stay on
+the device and a step costs the host one ``[B]`` seed row; sampling, the
+frame's feature gather and the train step (GraphSAGE, or GAT over 8 heads
+at attention dropout 0, over the sampled blocks; Adam 1e-2) run there. The
+graph is ``powerlaw_graph(..., device_features=True)`` with self loops, or
+under ``--products`` ``powerlaw_graph_device``. ``value`` counts edge slots
+a second, ``Σ_k sizes[k]·fanouts[k]`` a step (``plan_sizes``), beside
+``step_ms`` and ``seeds_per_sec``. No sampled step runs a hand-written
+kernel. ``--host-sampler`` (the JAX script's host C++ sampler and prefetch
+pipeline) is not ported yet and raises.
+
+Not ported from the JAX script: ``--bf16``, ``--act-compress``, ``--remat``,
 ``--reorder*``, and the flags that only switch TPU layouts. The result line
 leaves out ``vs_baseline`` and ``vs_gather_floor``, which compare with
 rates of other hardware.
@@ -33,8 +46,10 @@ import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .data.device_sampling import DeviceNeighborSampler, plan_sizes
 from .data.graph import Graph, add_self_loops, sym_norm
 from .datasets.synthetic import powerlaw_graph, powerlaw_graph_device
 from .models import build_model
@@ -42,6 +57,7 @@ from .ops import cache_propagation
 from .ops.cuda import prepare_spmm, prepare_spmm_device
 from .trainer.trainer import resolve_device
 from .utils.evaluator import masked_cross_entropy
+from .wrappers.sampled_node_classification import DeviceSampledNodeClfWrapper
 
 PRODUCTS_NODES, PRODUCTS_AVG_DEGREE = 2_450_000, 50
 
@@ -49,7 +65,9 @@ PRODUCTS_NODES, PRODUCTS_AVG_DEGREE = 2_450_000, 50
 def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("cogdl_tpu_torch.bench", description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--model", default="gcn", choices=("gcn", "gat"))
+    ap.add_argument("--model", default="gcn", choices=("gcn", "gat", "sage"),
+                    help="gcn | gat full batch; sage | gat under --sampled "
+                    "(where gcn means sage, as in the JAX script)")
     ap.add_argument("--nodes", type=int, default=100_000)
     ap.add_argument("--avg-degree", type=int, default=30)
     ap.add_argument("--feat-dim", type=int, default=100)
@@ -72,6 +90,16 @@ def get_parser() -> argparse.ArgumentParser:
                     "panels)")
     ap.add_argument("--no-prop-cache", action="store_true",
                     help="GCN: do not cache the first layer's propagation")
+    ap.add_argument("--sampled", action="store_true",
+                    help="mini-batch neighbor-sampled training with the "
+                    "on-device sampler")
+    ap.add_argument("--host-sampler", action="store_true",
+                    help="--sampled with the host sampler pipeline: not yet "
+                    "ported (raises)")
+    ap.add_argument("--batch-size", type=int, default=1024,
+                    help="--sampled: seed nodes a step")
+    ap.add_argument("--fanouts", default="15,10",
+                    help="--sampled: fanout of each hop, seeds outward")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                     "PyTorch versions of the kernels)")
@@ -81,9 +109,14 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    args = get_parser().parse_args(argv)
+    ap = get_parser()
+    args = ap.parse_args(argv)
     if args.products:
         args.nodes, args.avg_degree = PRODUCTS_NODES, PRODUCTS_AVG_DEGREE
+    if args.sampled and args.model == "gcn":
+        args.model = "sage"
+    elif not args.sampled and args.model == "sage":
+        ap.error("--model sage runs only under --sampled")
     return args
 
 
@@ -157,9 +190,114 @@ def time_steps(model, optimizer, graph: Graph, args: argparse.Namespace,
     return best / args.steps
 
 
+def make_sampled_graph(args: argparse.Namespace,
+                       device: torch.device) -> Graph:
+    """The sampled benchmark's graph on ``device``: under ``--products``
+    generated there by ``powerlaw_graph_device``, else the host generator's
+    edges with features, labels and masks drawn on the device, plus self
+    loops. The sampler reads its ``row_ptr``/``col`` and the resident
+    ``x``, ``y`` and ``train_mask``."""
+    if args.products:
+        return powerlaw_graph_device(args.nodes, avg_degree=args.avg_degree,
+                                     feat_dim=args.feat_dim, device=device)
+    return add_self_loops(powerlaw_graph(
+        args.nodes, avg_degree=args.avg_degree, feat_dim=args.feat_dim,
+        device_features=True, device=device))
+
+
+def fanouts_of(args: argparse.Namespace) -> Tuple[int, ...]:
+    return tuple(int(f) for f in args.fanouts.split(","))
+
+
+def sampled_state(args: argparse.Namespace, graph: Graph,
+                  device: torch.device):
+    """``(wrapper, optimizer, seed_rows)``: the model of ``make_model`` in
+    the device-sampled wrapper whose loss a step takes, and the shuffled
+    seed rows of enough epochs for ``--warmup`` + ``--steps`` steps,
+    ``int32[rows, B]`` on the device."""
+    fanouts = fanouts_of(args)
+    model, optimizer = make_model(args, graph, device)
+    wrapper = DeviceSampledNodeClfWrapper(model, fanouts=fanouts,
+                                          batch_size=args.batch_size)
+    sampler = DeviceNeighborSampler(graph, fanouts,
+                                    batch_size=args.batch_size)
+    rows = [sampler.epoch_seeds()]
+    while sum(r.shape[0] for r in rows) < args.warmup + args.steps:
+        rows.append(sampler.epoch_seeds())   # span epochs if the split is small
+    return wrapper, optimizer, torch.from_numpy(np.concatenate(rows)).to(device)
+
+
+def sampled_steps(wrapper, optimizer, graph: Graph, seed_rows: torch.Tensor,
+                  generator: torch.Generator) -> List[float]:
+    """One train step per seed row (sampling, the frame's gather, forward,
+    cross-entropy on the seed rows, backward, Adam); returns each step's
+    loss, read after one synchronisation at the end."""
+    losses = []
+    for seeds in seed_rows:
+        optimizer.zero_grad(set_to_none=True)
+        loss = wrapper.loss(wrapper.make_batch(graph, seeds), generator)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+    _sync(graph.device)
+    return [float(x) for x in losses]
+
+
+def run_sampled(args: argparse.Namespace, graph: Optional[Graph] = None
+                ) -> Dict[str, Any]:
+    """``--sampled``: build the graph (unless given one on the device) and
+    the model, run ``--warmup`` steps, then the fastest of ``--repeats``
+    timed loops over the same ``--steps`` seed rows, synced at the end;
+    returns the result line's payload."""
+    if args.host_sampler:
+        raise NotImplementedError(
+            "bench --sampled --host-sampler (the host sampler pipeline) is "
+            "not yet ported to cogdl_tpu_torch (ROADMAP.md §1, item 11e)")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if graph is None:
+        graph = make_sampled_graph(args, device)
+    wrapper, optimizer, seed_rows = sampled_state(args, graph, device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    generator = torch.Generator(device=device).manual_seed(1)
+    sampled_steps(wrapper, optimizer, graph, seed_rows[: args.warmup],
+                  generator)
+    timed = seed_rows[args.warmup: args.warmup + args.steps]
+    dt = float("inf")
+    for _ in range(max(args.repeats, 1)):
+        t0 = time.perf_counter()
+        losses = sampled_steps(wrapper, optimizer, graph, timed, generator)
+        dt = min(dt, time.perf_counter() - t0)
+    B, fanouts = args.batch_size, fanouts_of(args)
+    sizes = plan_sizes(B, fanouts)
+    slots = sum(sizes[k] * f for k, f in enumerate(fanouts))
+    payload = {
+        "metric": f"{args.model.upper()} sampled-train edge-slots/sec (1 "
+                  f"device, on-device sampler, powerlaw {args.nodes}n "
+                  f"x{args.avg_degree}, fanouts {args.fanouts}, B={B})",
+        "value": round(slots * args.steps / dt),
+        "unit": "edges/sec",
+        "step_ms": 1000 * dt / args.steps,
+        "seeds_per_sec": round(B * args.steps / dt),
+        "edge_slots_per_step": slots,
+        "loss": losses[-1],
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "setup_s": setup_s,
+    }
+    if device.type == "cuda":
+        payload["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return payload
+
+
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Build the graph and model and measure; returns the result line's
     payload."""
+    if args.sampled:
+        return run_sampled(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

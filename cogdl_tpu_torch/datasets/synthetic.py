@@ -4,8 +4,9 @@
 
 The two host generators draw from ``np.random.default_rng(seed)`` with the
 same calls in the same order as the JAX package, so the same arguments give
-the same graph in both packages. ``powerlaw_graph_device`` draws on the
-device from a ``torch.Generator``: the same law, other numbers.
+the same graph in both packages. ``powerlaw_graph_device`` and the features
+of ``powerlaw_graph(device_features=True)`` are drawn on the device from a
+``torch.Generator``: the same law, other numbers.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph, add_self_loops, from_coo, to_undirected
+from ..trainer.trainer import resolve_device
 
 
 def sbm_graph(
@@ -85,11 +87,20 @@ def powerlaw_graph(
     feat_dim: int = 128,
     num_classes: int = 47,
     seed: int = 0,
+    device_features: bool = False,
+    device="cuda",
 ) -> Graph:
     """Directed power-law graph, the SpMM benchmark workload: sources are
-    drawn from a Zipf law (a few hub columns), destinations uniformly. The
-    JAX package's ``relabel`` and ``device_features`` options are not
-    ported."""
+    drawn from a Zipf law (a few hub columns), destinations uniformly.
+
+    ``device_features=True`` draws ``x``, ``y`` and the masks on ``device``
+    (the card unless the caller names another) from a ``torch.Generator``
+    seeded with ``seed`` and returns the graph there: ``x`` has ``n_pad``
+    rows, the pad rows random too, as in the JAX package; ``train_mask`` is
+    ``(uniform < 0.1) & node_mask``, val and test its complement within
+    ``node_mask``. The edges are the host generator's either way. Without
+    it the graph is built on the host and ``device`` is not read. The JAX
+    package's ``relabel`` option is not ported."""
     rng = np.random.default_rng(seed)
     num_edges = num_nodes * avg_degree
     ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
@@ -97,6 +108,21 @@ def powerlaw_graph(
     probs /= probs.sum()
     col = rng.choice(num_nodes, size=num_edges, p=probs).astype(np.int64)
     row = rng.integers(0, num_nodes, size=num_edges).astype(np.int64)
+    meta = {"num_classes": num_classes, "name": f"powerlaw{num_nodes}"}
+    if device_features:
+        device = resolve_device(device)
+        g = from_coo(np.stack([row, col]), num_nodes=num_nodes,
+                     meta=meta).to(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(g.n_pad, feat_dim, generator=gen, device=device)
+        y = torch.randint(0, num_classes, (g.n_pad,), generator=gen,
+                          device=device, dtype=torch.int32)
+        node_ok = g.node_mask()
+        train_mask = (torch.rand(g.n_pad, generator=gen, device=device)
+                      < 0.1) & node_ok
+        return g.replace(x=x, y=y, train_mask=train_mask,
+                         val_mask=~train_mask & node_ok,
+                         test_mask=~train_mask & node_ok)
     x = rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
     y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
     train_mask = rng.uniform(size=num_nodes) < 0.1
@@ -108,7 +134,7 @@ def powerlaw_graph(
         train_mask=train_mask,
         val_mask=~train_mask,
         test_mask=~train_mask,
-        meta={"num_classes": num_classes, "name": f"powerlaw{num_nodes}"},
+        meta=meta,
     )
 
 

@@ -61,6 +61,8 @@ def _setup_variant(ds, model, seed, wrapper, kwargs):
     model_kwargs = {k: v for k, v in kwargs.items()
                     if k not in TRAINER_KEYS and k not in wrapper_keys}
     trainer_kwargs["seed"] = seed
+    if "seed" in wrapper_keys:
+        wrapper_kwargs.setdefault("seed", seed)
     out_features = ds.num_classes
     if out_features is None:
         out_features = model_kwargs.get("hidden_size", 64)

@@ -1,16 +1,18 @@
 """GAT layer: multi-head additive attention over edges, edge softmax and
 multi-head aggregation — the port of ``cogdl_tpu/layers/gat_layer.py``.
 
-Two routes, chosen by the graph as in the JAX layer:
+Three routes, chosen by the graph as in the JAX layer:
 
+  * regular fanout: a block of the device sampler (``meta["fanout"]``),
+    where every destination owns exactly ``f`` dst-major slots, so softmax
+    and aggregation are ``[n, f, ...]`` reshape-reduces in plain torch on
+    every device (the JAX package computes them outside any kernel too);
   * fused: when the graph carries the kernel structure (``prepare_spmm``),
     scores, softmax, attention dropout and aggregation run in K3 through
     :func:`cogdl_tpu_torch.ops.cuda.maybe_cuda_gat_fused` (the plain K3 on
     CPU tensors), so no per-edge tensor is kept;
   * unfused: otherwise, ``gather`` + ``edge_softmax`` + ``mh_spmm`` in plain
     torch, which a CUDA tensor never takes.
-
-The regular-fanout route of sampled blocks comes with the sampled slice.
 """
 
 from __future__ import annotations
@@ -92,19 +94,20 @@ class GATLayer(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if graph.meta_get("fanout"):
-            raise NotImplementedError(
-                "GAT over regular-fanout blocks is not yet ported to "
-                "cogdl_tpu_torch (the sampled slice, ROADMAP.md item 11)")
         H, D = self.nhead, self.out_features
         h = self.W(x).view(-1, H, D)
         # additive attention split into dst and src halves (aᵀ[Wh_i || Wh_j])
         score_dst = (h * self.a_dst).sum(-1)                # [N, H]
-        score_src = (h * self.a_src).sum(-1)
         drop = self.attn_drop if training else 0.0
-        out = maybe_cuda_gat_fused(graph, score_dst, score_src, h,
-                                   alpha=self.alpha, attn_drop=drop,
-                                   generator=generator)
+        if graph.meta_get("fanout"):
+            # ahead of the fused route: a block has no kernel structure, and
+            # maybe_cuda_gat_fused raises for a CUDA tensor without it
+            out = self._fanout_attention(graph, h, score_dst, drop, generator)
+        else:
+            score_src = (h * self.a_src).sum(-1)
+            out = maybe_cuda_gat_fused(graph, score_dst, score_src, h,
+                                       alpha=self.alpha, attn_drop=drop,
+                                       generator=generator)
         if out is None:
             e = gather(score_dst, graph.row) + gather_src(graph, score_src)
             att = edge_softmax(graph, F.leaky_relu(e, self.alpha))
@@ -122,3 +125,29 @@ class GATLayer(nn.Module):
         if self.activation is not None:
             out = get_activation(self.activation)(out)
         return out
+
+    def _fanout_attention(self, graph: Graph, h: torch.Tensor,
+                          score_dst: torch.Tensor, drop: float,
+                          generator: Optional[torch.Generator]
+                          ) -> torch.Tensor:
+        """Attention over a regular-fanout block (reference
+        ``cogdl_tpu/layers/gat_layer.py:56-80``): the flat ``[N, H·D]`` rows
+        of the first ``n·f`` slots gathered once, the source score
+        recomputed from them, dead slots (weight 0) masked to −1e30, softmax
+        over the ``f`` axis, then dropout and the weighted sum; ``[n_pad, H,
+        D]`` with zeros past the frontier. A destination whose slots are
+        all dead gets the mean of its slots' rows (the frame's sink row)."""
+        H, D = self.nhead, self.out_features
+        f, n = graph.meta_get("fanout"), graph.meta_get("frontier")
+        cols = graph.col[: n * f]
+        msg = h.reshape(-1, H * D).index_select(
+            0, cols.clamp(0, h.shape[0] - 1)).view(n, f, H, D)
+        e = F.leaky_relu(score_dst[:n, None, :] + (msg * self.a_src).sum(-1),
+                         self.alpha)
+        w = graph.edge_weight[: n * f].view(n, f, 1)
+        att = torch.softmax(torch.where(w > 0, e, torch.full_like(e, -1e30)),
+                            dim=1)
+        if drop > 0:
+            att = dropout(att, drop, generator)
+        red = (att[..., None] * msg).sum(1)                 # [n, H, D]
+        return torch.cat([red, red.new_zeros((graph.n_pad - n, H, D))])

@@ -1,7 +1,9 @@
 """GAT — the port of ``cogdl_tpu/models/nn/gat.py``.
 
 Forward contract: ``model(graph, x=None, training=False, generator=None)
--> logits[n_pad, C]``. Hidden layers concatenate ``nhead`` heads of
+-> logits[n_pad, C]``; ``graph`` is a Graph (full batch) or a sequence of
+per-hop block Graphs (sampled mini-batch, outermost-first: layer ``i``
+reads ``blocks[i]``). Hidden layers concatenate ``nhead`` heads of
 ``hidden_size`` and apply ELU; the output layer averages ``nhead_last``
 heads. Dropout on each layer's input is drawn from ``generator``.
 Submodules are named ``layer{i}`` as the flax parameter tree is, so
@@ -15,7 +17,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...data.graph import Graph
 from ...layers import GATLayer
 from ...layers.utils import dropout
 
@@ -46,17 +47,16 @@ class GAT(nn.Module):
         for i in range(self.num_layers):
             getattr(self, f"layer{i}").reset_parameters(generator)
 
-    def forward(self, graph: Graph, x: Optional[torch.Tensor] = None,
+    def forward(self, graph, x: Optional[torch.Tensor] = None,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if isinstance(graph, (list, tuple)):
-            raise NotImplementedError(
-                "GAT over a list of sampled blocks is not yet ported to "
-                "cogdl_tpu_torch (the sampled slice, ROADMAP.md item 11)")
+        blocks = (graph if isinstance(graph, (list, tuple))
+                  else [graph] * self.num_layers)
         if x is None:
-            x = graph.x
+            x = blocks[0].x
         for i in range(self.num_layers):
             if self.dropout > 0 and training:
                 x = dropout(x, self.dropout, generator)
-            x = getattr(self, f"layer{i}")(graph, x, training, generator)
+            block = blocks[-1] if i == self.num_layers - 1 else blocks[i]
+            x = getattr(self, f"layer{i}")(block, x, training, generator)
         return x

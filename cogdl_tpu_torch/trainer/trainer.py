@@ -6,6 +6,13 @@ the epoch loop: one ``train_step`` per batch, evaluation every
 ``eval_step`` epochs, early stopping on the wrapper's monitor, the
 ``nan_guard`` rollback, and a final evaluation on the best parameters.
 
+A wrapper's batches come one of two ways, as in the JAX trainer: its
+``train_batches(graph)``, read once (or every epoch when the wrapper sets
+``refresh_per_epoch``); or, when it has ``epoch_xs`` and ``make_batch``,
+one step per row of ``epoch_xs(graph)`` each epoch, the batch made by
+``make_batch(graph, row)`` (the JAX trainer scans that loop inside one jit;
+here it is a plain loop).
+
 It runs on the card unless the config asks for the CPU, and raises when no
 card is visible rather than carry on on the CPU.
 """
@@ -223,7 +230,12 @@ class Trainer:
                         sched.load_state_dict(sched_state)
                 start_epoch = int(ckpt.get("epoch", 0))
 
-        batches = wrapper.train_batches(graph)
+        epoch_rows = hasattr(wrapper, "epoch_xs") and hasattr(
+            wrapper, "make_batch")
+        refresh = getattr(wrapper, "refresh_per_epoch", False)
+        # under the epoch protocol the batch list is never read; building it
+        # would spend one of the sampler's shuffles
+        batches = None if epoch_rows else wrapper.train_batches(graph)
         monitor = getattr(wrapper, "eval_metric", cfg.monitor)
         sign = 1.0 if getattr(wrapper, "eval_mode", cfg.monitor_mode) == "max" else -1.0
         best = -np.inf
@@ -236,13 +248,21 @@ class Trainer:
         t0 = time.time()
         for epoch in range(start_epoch, cfg.epochs):
             t_step = time.perf_counter()
-            losses = [self.train_step(wrapper, opt, sched, b, generator)
-                      for b in batches]
+            if epoch_rows:
+                losses = [self.train_step(wrapper, opt, sched,
+                                          wrapper.make_batch(graph, x),
+                                          generator)
+                          for x in wrapper.epoch_xs(graph)]
+            else:
+                if refresh and epoch > 0:
+                    batches = wrapper.train_batches(graph)
+                losses = [self.train_step(wrapper, opt, sched, b, generator)
+                          for b in batches]
             if (epoch + 1) % cfg.eval_step == 0:
                 # float() waits for the device, so this clock spans the steps
                 train_loss = float(torch.stack(losses).mean())
                 t_eval = time.perf_counter()
-                step_ms.append((t_eval - t_step) * 1e3 / len(batches))
+                step_ms.append((t_eval - t_step) * 1e3 / len(losses))
                 if cfg.nan_guard:
                     if not np.isfinite(train_loss):
                         # consecutive failures only — a recovered blip resets

@@ -85,10 +85,63 @@ def test_products_sets_the_published_shape():
 
 
 def test_unported_flags_are_refused():
-    for flag in ("--sampled", "--bf16", "--remat", "--act-compress",
-                 "--r-tile"):
+    for flag in ("--bf16", "--remat", "--act-compress", "--r-tile",
+                 "--reorder"):
         with pytest.raises(SystemExit):
             bench.parse_args([flag])
+
+
+SAMPLED = ["--sampled", "--device", "cpu", "--nodes", "2000",
+           "--avg-degree", "10", "--batch-size", "8", "--fanouts", "2,2",
+           "--steps", "2", "--warmup", "1", "--repeats", "1"]
+SAMPLED_FIELDS = {"metric", "value", "unit", "step_ms", "seeds_per_sec",
+                  "edge_slots_per_step", "loss", "device", "setup_s"}
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_sampled_emits_its_fields(capsys, model):
+    sk.reset_launch_counts()
+    payload = bench.main(SAMPLED + ["--model", model])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 1 and json.loads(lines[0]) == payload
+    assert set(payload) == SAMPLED_FIELDS       # a CPU run: no peak_hbm_bytes
+    # edge slots a step: 8·2 + 24·2 (plan_sizes 8, 24, 72)
+    assert payload["edge_slots_per_step"] == 64
+    # both rates are rounded to integers
+    assert payload["value"] == pytest.approx(
+        64 * 1000 / payload["step_ms"], abs=0.5)
+    assert payload["seeds_per_sec"] == pytest.approx(
+        8 * 1000 / payload["step_ms"], abs=0.5)
+    assert payload["metric"].startswith(f"{model.upper()} sampled-train")
+    assert "fanouts 2,2, B=8" in payload["metric"]
+    assert payload["device"] == "cpu" and payload["unit"] == "edges/sec"
+    assert payload["loss"] > 0 and "vs_baseline" not in payload
+    # no sampled step runs a hand-written kernel
+    assert (sk.spmm_csr.launches, sk.spmm_csr_accum.launches,
+            sk.gat_pass.launches) == (0, 0, 0)
+
+
+def test_sampled_model_names():
+    assert bench.parse_args(["--sampled"]).model == "sage"   # as bench.py
+    assert bench.parse_args(["--sampled", "--model", "gat"]).model == "gat"
+    args = bench.parse_args(["--sampled", "--products"])
+    assert (args.nodes, args.batch_size, args.fanouts) == (
+        2_450_000, 1024, "15,10")
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--model", "sage"])    # full batch has no sage
+
+
+def test_sampled_graph_carries_features_on_the_device():
+    args = bench.parse_args(SAMPLED)
+    g = bench.make_sampled_graph(args, torch.device("cpu"))
+    assert g.x.shape == (g.n_pad, 100) and g.meta_get("num_classes") == 47
+    E = g.num_edges
+    assert int((g.row[:E] == g.col[:E]).sum()) == 2000   # one self loop each
+
+
+def test_host_sampler_is_not_ported():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        bench.main(SAMPLED + ["--host-sampler"])
 
 
 def test_runs_on_the_card_unless_told_otherwise():

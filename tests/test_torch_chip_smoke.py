@@ -662,6 +662,112 @@ def test_sage_parity_and_quality_phase_rehearsal():
     assert cs.phase_sage_quality(CPU) >= cs.SBM_MIN_TEST_ACC
 
 
+SAMPLED_TINY = dict(batch_size=8, fanouts=(2, 2))
+
+
+def test_sampled_main_path_phase_rehearsal():
+    info = cs.phase_sampled_main_path(CPU, num_nodes=300, epochs=3,
+                                      **SAMPLED_TINY)
+    assert list(info) == ["sage-mean", "sage-sum", "gat"]
+    for run in info.values():
+        assert run["launches"] == {}   # CPU tensors never launch a kernel
+        assert run["losses"][1] < run["losses"][0] and run["epochs"] == 3
+        assert run["train_step_ms"] > 0 and run["eval_ms"] > 0
+
+
+def test_sampled_launches_expected_are_the_evaluations_only():
+    assert cs._sampled_expected("graphsage", "mean", 6, True) == {}
+    assert cs._sampled_expected("graphsage", "sum", 6, True) == {
+        "spmm_csr": {("csr", 100): 6, ("csr", 128): 6}}
+    assert cs._sampled_expected("gat", None, 6, True) == {
+        "gat_pass": {("fwd", 8, 16): 6, ("fwd", 1, 47): 6}}
+    assert cs._sampled_expected("gat", None, 6, False) == {}
+
+
+def test_sampled_main_path_catches_a_launch_on_a_train_step(monkeypatch):
+    from cogdl_tpu_torch.wrappers import sampled_node_classification as snc
+
+    real = snc.DeviceSampledNodeClfWrapper.loss
+
+    def loss_and_count(self, *a, **kw):
+        cs.sk.spmm_csr.launches += 1
+        cs.sk.spmm_csr.launches_by[("csr", 8)] += 1
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(snc.DeviceSampledNodeClfWrapper, "loss",
+                        loss_and_count)
+    with pytest.raises(AssertionError, match="none on a train step"):
+        cs.phase_sampled_main_path(CPU, num_nodes=300, epochs=2,
+                                   models=cs.SAMPLED_MODELS[:1],
+                                   **SAMPLED_TINY)
+    cs.sk.reset_launch_counts()
+
+
+def test_sampled_check_phase_rehearsal():
+    info = cs.phase_sampled_check(CPU, num_nodes=300, **SAMPLED_TINY)
+    assert info["live_slots"] > 0 and info["dead_slots"] > 0
+    assert info["max_abs_diff"] == {
+        "sage-mean": 0.0, "sage-sum": 0.0, "sage-max": 0.0, "sage-gcn": 0.0,
+        "gat": 0.0}
+
+
+def _sampled_batch():
+    g = cs._holed_graph(300, CPU)
+    seeds = torch.from_numpy(cs.DeviceNeighborSampler(
+        g, (2, 2), batch_size=8).epoch_seeds()[0])
+    blocks, frame = cs.sample_blocks_device(
+        g, seeds, torch.Generator().manual_seed(0), (2, 2))
+    return g, blocks, frame, seeds
+
+
+def test_check_blocks_catches_what_the_sampler_must_not_do():
+    g, blocks, frame, seeds = _sampled_batch()
+    live, dead = cs.check_blocks(g, blocks, frame, seeds)
+    assert live + dead == 24 * 2 + 8 * 2
+    # a live slot of the seed hop whose frame row is no neighbour
+    b = blocks[-1]
+    e = int(torch.nonzero(b.edge_weight[:16] > 0)[0])
+    u = int(frame[e // 2])
+    E = g.num_edges
+    nbrs = set(g.col[:E][g.row[:E] == u].tolist())
+    v = next(i for i in range(g.num_nodes) if i not in nbrs)
+    bad = frame.clone()
+    bad[8 + e] = v
+    with pytest.raises(AssertionError, match="not an edge"):
+        cs.check_blocks(g, blocks, bad, seeds)
+    with pytest.raises(AssertionError, match="seeds"):
+        cs.check_blocks(g, blocks, frame, seeds.flip(0))
+    # a dead slot made live
+    if dead:
+        b0 = blocks[0]
+        w = b0.edge_weight.clone()
+        w[int(torch.nonzero(w[: b0.num_edges] == 0)[0])] = 1.0
+        blocks2 = (b0.replace(edge_weight=w),) + tuple(blocks[1:])
+        with pytest.raises(AssertionError, match="without an edge"):
+            cs.check_blocks(g, blocks2, frame, seeds)
+
+
+def test_sampled_bench_phase_rehearsal():
+    records = cs.phase_sampled_bench(
+        CPU, scales=((2000, 10, False), (3000, 10, True)), steps=2,
+        warmup=1, repeats=1, **SAMPLED_TINY)
+    assert [(r["model"], r["products"]) for r in records] == [
+        ("sage", False), ("gat", False), ("sage", True), ("gat", True)]
+    for r in records:
+        assert r["step_ms"] > 0 and r["value"] > 0 and r["seeds_per_sec"] > 0
+        assert r["edge_slots_per_step"] == 64 and r["graph_s"] > 0
+        assert r["profile"]["busy_ms"] is None      # no card
+        assert "peak_hbm_bytes" not in r
+    # the products route: the device generator's undirected graph
+    assert records[2]["edges"] == 3000 * 10 + 3000
+
+
+def test_busy_time_counts_overlaps_once():
+    assert cs.busy_us([(10, 12), (0, 5), (3, 8), (11, 11)]) == 10
+    assert cs.busy_us([]) == 0
+    assert cs.profile_window(lambda: None, CPU)["busy_ms"] is None
+
+
 def _run_without_card(cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

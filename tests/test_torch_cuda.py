@@ -1045,3 +1045,70 @@ def test_k3_chooses_its_kernel_by_the_longest_row(dev):
         gat_pass("fwd", star["ptr"], star["col"], orig, t["sd"], t["ss"],
                  t["smax"], t["h2"], alpha=0.2, schedule=ssched,
                  kernel="rows")
+
+
+# -- sampled mini-batch training ---------------------------------------------
+
+from cogdl_tpu_torch.data.device_sampling import (  # noqa: E402
+    DeviceNeighborSampler,
+    sample_blocks_device,
+)
+from cogdl_tpu_torch.models import build_model  # noqa: E402
+from cogdl_tpu_torch.wrappers.sampled_node_classification import (  # noqa: E402
+    DeviceSampledNodeClfWrapper,
+)
+
+
+def test_sampled_blocks_on_the_card_keep_the_samplers_promises(dev):
+    g = chip_smoke._holed_graph(5000, dev)
+    seeds = torch.from_numpy(DeviceNeighborSampler(
+        g, (5, 3), batch_size=64).epoch_seeds()[0]).to(dev)
+    blocks, frame = sample_blocks_device(
+        g, seeds, torch.Generator(device=dev).manual_seed(0), (5, 3))
+    assert frame.is_cuda and all(b.col.is_cuda for b in blocks)
+    live, dead = chip_smoke.check_blocks(g, blocks, frame, seeds)
+    assert live > 0 and dead > 0
+
+
+def test_sampled_logits_on_the_card_match_the_cpu(dev):
+    info = chip_smoke.phase_sampled_check(dev, num_nodes=5000, batch_size=64,
+                                          fanouts=(5, 3))
+    assert max(info["max_abs_diff"].values()) < 1e-4
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_sampled_train_step_launches_no_kernel_and_waits_for_nothing(dev,
+                                                                    model):
+    """A sampled step on the card: no hand-written kernel, and no operation
+    that makes the host wait for the card (sync debug mode raises on one)."""
+    from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph
+
+    g = add_self_loops(powerlaw_graph(3000, avg_degree=8, feat_dim=16,
+                                      num_classes=5, device_features=True,
+                                      device=dev))
+    net = build_model(model, in_features=16, out_features=5, hidden_size=8,
+                      nhead=2).to(dev)
+    w = DeviceSampledNodeClfWrapper(net, fanouts=(4, 3), batch_size=32)
+    w._sampler = DeviceNeighborSampler(g, (4, 3), batch_size=32)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = w.epoch_xs(g)
+
+    def step(x):
+        opt.zero_grad(set_to_none=True)
+        loss = w.loss(w.make_batch(g, x), gen)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    step(rows[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [step(x) for x in rows[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.stack(losses).isfinite().all()
+    assert (spmm_csr.launches, spmm_csr_accum.launches,
+            gat_pass.launches) == (0, 0, 0)

@@ -463,12 +463,38 @@ def test_gat_init_follows_flax_initialisers():
 
 
 def test_unported_gat_inputs_raise(graphs):
+    """A halo-partitioned graph (the multi-device slice) is the GAT input
+    still unported, alone or in a list of blocks; lists of blocks and
+    regular-fanout blocks run (tests/test_torch_device_sampling.py)."""
     _, _, gt, _ = graphs
     m = build_model("gat", in_features=gt.num_features, out_features=4)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        m([gt, gt])
-    with pytest.raises(NotImplementedError, match="fanout"):
-        m(gt.with_meta(fanout=5, frontier=10))
+    halo = gt.replace(extras={"halo_send_ring": torch.zeros(1)})
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        m(halo)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        m([halo, halo])
+    with torch.no_grad():
+        assert torch.equal(m([gt, gt]), m(gt))
+
+
+def test_fanout_route_is_taken_before_the_fused_route(graphs, monkeypatch):
+    """A regular-fanout block never reaches maybe_cuda_gat_fused (which
+    raises for a CUDA tensor without the kernel structure)."""
+    gj, _, gt, _ = graphs
+    import cogdl_tpu_torch.layers.gat_layer as gl
+
+    def refuse(*a, **kw):
+        raise AssertionError("fused route taken for a fanout block")
+
+    monkeypatch.setattr(gl, "maybe_cuda_gat_fused", refuse)
+    from cogdl_tpu_torch.data.device_sampling import (
+        frame_features, sample_blocks_device)
+
+    blocks, _ = sample_blocks_device(gt, torch.arange(8, dtype=torch.int32),
+                                     torch.Generator().manual_seed(0), (3, 2))
+    m = build_model("gat", in_features=gt.num_features, out_features=4)
+    out = m(list(blocks), frame_features(blocks))
+    assert out.shape == (blocks[0].n_pad, 4) and bool(out.isfinite().all())
 
 
 def test_fused_route_with_attention_dropout_trains_deterministically(graphs):

@@ -276,3 +276,76 @@ def test_progress_prints_every_20th_epoch(raw_graphs, capsys, eval_step):
 def test_unported_trainer_options_raise(option):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TrainerConfig(**option)
+
+
+class _BatchCounting(NodeClfWrapper):
+    """Two batches (the graph twice) per ``train_batches`` call, counted."""
+
+    def __init__(self, model, refresh):
+        super().__init__(model)
+        self.refresh_per_epoch = refresh
+        self.reads = 0
+
+    def train_batches(self, graph):
+        self.reads += 1
+        return [graph, graph]
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_refresh_per_epoch_reads_the_batches_every_epoch(raw_graphs, refresh):
+    """As the JAX trainer: the batch list is read once, or before every
+    epoch when the wrapper asks for it."""
+    _, gt_raw = raw_graphs
+    w = _BatchCounting(build_model("gcn", **MODEL_KW), refresh)
+    res = Trainer(TrainerConfig(device="cpu", epochs=4)).run(w, gt_raw)
+    assert w.reads == (4 if refresh else 1)
+    assert np.isfinite(res["train_loss"])
+
+
+class _RowWrapper(NodeClfWrapper):
+    """The epoch protocol: three rows an epoch, each made into the full
+    graph's batch; ``train_batches`` must not be read."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.rows, self.losses = [], []
+
+    def train_batches(self, graph):
+        raise AssertionError("train_batches read under the epoch protocol")
+
+    def epoch_xs(self, graph):
+        return torch.arange(3)
+
+    def make_batch(self, graph, x):
+        self.rows.append(int(x))
+        return graph
+
+    def loss(self, graph, generator=None, training=True):
+        loss = super().loss(graph, generator, training)
+        self.losses.append(float(loss.detach()))
+        return loss
+
+
+def test_epoch_protocol_takes_one_step_a_row(raw_graphs):
+    """One optimizer step (and one schedule step, as optax counts updates)
+    per row of ``epoch_xs``; ``train_loss`` is the mean of the last epoch's
+    losses."""
+    _, gt_raw = raw_graphs
+    w = _RowWrapper(build_model("gcn", **MODEL_KW))
+    cfg = TrainerConfig(device="cpu", epochs=2, lr_schedule="linear",
+                        eval_step=1, patience=10)
+    trainer = Trainer(cfg)
+    seen = []
+    real_step = trainer.train_step
+
+    def step(wrapper, optimizer, scheduler, batch, generator):
+        out = real_step(wrapper, optimizer, scheduler, batch, generator)
+        seen.append(scheduler.last_epoch)
+        return out
+
+    trainer.train_step = step
+    res = trainer.run(w, gt_raw)
+    assert w.rows == [0, 1, 2, 0, 1, 2]
+    assert seen == [1, 2, 3, 4, 5, 6]
+    assert res["train_loss"] == pytest.approx(np.mean(w.losses[3:]),
+                                              rel=1e-6)
