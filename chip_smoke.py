@@ -29,7 +29,14 @@ sampler: GraphSAGE and GAT through ``experiment()`` with exact launch counts
 (none on a train step), the sampler's blocks checked on the card against
 the graph and card logits over them against the CPU's, and
 ``bench --sampled`` at 100k nodes and at the products scale with
-``torch.profiler``'s busy time. Prints one JSON line of kernel measurements and, last,
+``torch.profiler``'s busy time; then host-sampled training: the port's C++
+sampler built with g++ and held bit for bit against its numpy replay,
+GraphSAGE and GAT through ``experiment(wrapper="neighbor_sampling")`` with
+exact launch counts (K1 and K3 over a fresh block structure every step),
+K1 and K3 over a full-size host block against their plain versions, card
+against CPU logits over it, and ``bench --sampled --host-sampler`` at 100k
+and products with the worker's own time a batch and ``torch.profiler``'s
+busy time. Prints one JSON line of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails. ``--gather-only`` builds the kernels and runs only the
 gather probes' kernel check; its last line says ``"gather_only": true``.
@@ -46,6 +53,7 @@ import copy
 import functools
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,13 +61,14 @@ import time
 import numpy as np
 import torch
 
-from cogdl_tpu_torch import bench
+from cogdl_tpu_torch import bench, native
 from cogdl_tpu_torch.data.device_sampling import (
     DeviceNeighborSampler,
     frame_features,
     sample_blocks_device,
 )
 from cogdl_tpu_torch.data.graph import add_self_loops, from_coo, sym_norm
+from cogdl_tpu_torch.data.sampling import graph_csr
 from cogdl_tpu_torch.datasets.dataset import Dataset
 from cogdl_tpu_torch.datasets.synthetic import (
     powerlaw_graph,
@@ -89,6 +98,9 @@ from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
 from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
+from cogdl_tpu_torch.wrappers.sampled_node_classification import (
+    SampledNodeClfWrapper,
+)
 
 # bench.py's default GCN configuration: 100k nodes, avg degree 30, F=100,
 # hidden 128, 47 classes
@@ -1465,9 +1477,13 @@ def adversarial_structures(device: torch.device, chunk: int = CHUNK_EDGES,
     that sit on the chunk schedule's edges, ``T`` edges a chunk: a star (one
     row holds every edge); rows of exactly T−1, T, T+1 and 2T edges, a row
     that ends on a chunk boundary, rows without an edge at the start,
-    between and at the end; no edge at all; a small power-law graph; and
+    between and at the end; no edge at all; a small power-law graph;
     ``middle_third_unnamed``, whose columns leave the middle third of the
-    rows out, so that the middle one of three source panels is empty."""
+    rows out, so that the middle one of three source panels is empty; and
+    ``host_block``, shaped as a host-sampled block: a few rows at the top
+    of the frame hold fanout-sized rows (15, then 10 edges), every other row
+    (the sink's among them) none, and half the edges read one hub column,
+    whose row of the transposed structure is cut across chunks."""
     gen = torch.Generator(device=device).manual_seed(seed)
     t = chunk
 
@@ -1494,6 +1510,9 @@ def adversarial_structures(device: torch.device, chunk: int = CHUNK_EDGES,
     E = g.num_edges
     out.append(("powerlaw", g.row[:E].long().to(device),
                 g.col[:E].long().to(device), n))
+    row, col, _ = edges([15] * 8 + [10] * 16, n)
+    hub = torch.arange(col.numel(), device=device) % 2 == 0
+    out.append(("host_block", row, torch.where(hub, n // 2, col), n))
     return out
 
 
@@ -2457,15 +2476,15 @@ def phase_sampled_bench(device: torch.device, scales=SAMPLED_SCALES,
             if not np.isfinite(payload["loss"]):
                 raise AssertionError(f"sampled bench {model}: loss not "
                                      f"finite: {payload}")
-            wrapper, opt, rows = bench.sampled_state(args, graph, device)
+            wrapper, opt, batches = bench.sampled_state(args, graph, device)
             gen = torch.Generator(device=device).manual_seed(1)
-            bench.sampled_steps(wrapper, opt, graph, rows[:warmup], gen)
+            bench.sampled_steps(wrapper, opt, batches[:warmup], gen)
             prof = profile_window(functools.partial(
-                bench.sampled_steps, wrapper, opt, graph,
-                rows[warmup: warmup + steps], gen), device)
+                bench.sampled_steps, wrapper, opt,
+                batches[warmup: warmup + steps], gen), device)
             if prof["busy_ms"] is not None:
                 prof["busy_ms_per_step"] = prof["busy_ms"] / steps
-            del wrapper, opt, rows
+            del wrapper, opt, batches
             rec = {"model": model, "nodes": nodes, "avg_degree": avg_degree,
                    "products": products, "edges": graph.num_edges,
                    "graph_s": graph_s, "profile": prof,
@@ -2475,6 +2494,391 @@ def phase_sampled_bench(device: torch.device, scales=SAMPLED_SCALES,
                       if k in payload}}
             print(f"[sampled-bench] {json.dumps(rec)}")
             records.append(rec)
+        del graph
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Host-sampled mini-batch training: the port's C++ sampler, the prefetch
+# worker (sampling, the blocks' kernel structure, the copy to the card) and
+# K1 / K3 over a fresh structure every step
+# ---------------------------------------------------------------------------
+
+def _host_sampled_expected(model: str, aggr, steps: int, evals: int,
+                           on_card: bool):
+    """The launches of a host-sampled run, by counted wrapper and case.
+    Train steps over host blocks, which carry ``prepare_spmm``'s structure
+    when the model reads it. GraphSAGE ``sum``: the first layer aggregates
+    the frame's features, F=100, which need no gradient, so K1 runs over
+    the CSR only; the second aggregates the hidden rows, F=128, over the
+    CSR forward and over the CSC backward: 2 CSR + 1 CSC a step. GAT: each
+    layer's attention runs K3's fwd, and backward dsd (the destination
+    scores need a gradient) and dsrc (the source scores and rows do): 2
+    each a step, at (8 heads, 16) and (1 head, 47). ``mean`` runs no
+    kernel. Each full-batch evaluation adds what the full-batch model
+    launches (:func:`_sampled_expected`)."""
+    if not on_card:
+        return {}
+    out = _sampled_expected(model, aggr, evals, on_card)
+    if model == "gat":
+        per_case = out["gat_pass"]
+        for heads, head_dim in GAT_SHAPES:
+            per_case[("fwd", heads, head_dim)] += steps
+            per_case[("dsd", heads, head_dim)] = steps
+            per_case[("dsrc", heads, head_dim)] = steps
+    elif aggr == "sum":
+        per_case = out["spmm_csr"]
+        for f in (FEAT_DIM, HIDDEN):
+            per_case[("csr", f)] += steps
+        per_case[("csc", HIDDEN)] = steps
+    return out
+
+
+def _host_graph(num_nodes: int, device: torch.device):
+    """The host-sampled path's graph: the powerlaw graph's edges with its
+    features, labels and masks drawn on ``device`` (``device_features``)."""
+    return powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                          num_classes=NUM_CLASSES, seed=0,
+                          device_features=True, device=device)
+
+
+def phase_host_library(device: torch.device, num_nodes: int = NUM_NODES,
+                       batch_size: int = SAMPLED_BATCH,
+                       fanouts=SAMPLED_FANOUTS, repeats: int = 5):
+    """The host sampling library built with g++ on this machine, then
+    ``sample_neighbors`` held bit for bit against its numpy replay at 1
+    thread and at the machine's OpenMP count, over both hops of a
+    full-size batch of the powerlaw graph with every ``HOLE_EVERY``-th row
+    emptied (so dead slots occur); every live slot is an edge of the graph,
+    every dead slot a seed without one pointing at itself. Returns the
+    thread counts, the library's time a call per hop (the median of
+    ``repeats`` calls, and the first, which starts the thread team), the
+    replay's, and the slot counts. Runs on the host whatever ``device``
+    is."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    g = _holed_graph(num_nodes, torch.device("cpu"))
+    indptr, indices, _ = graph_csr(g)
+    indices = indices.astype(np.int64)
+    E, N = g.num_edges, g.num_nodes
+    keys = np.sort(g.row[:E].numpy().astype(np.int64) * N
+                   + g.col[:E].numpy())
+    rng = np.random.default_rng(0)
+    cur = rng.choice(np.nonzero(g.train_mask[:N].numpy())[0], batch_size,
+                     replace=False)
+    threads = sorted({1, native.max_threads()})
+    hops = []
+    for k, f in enumerate(fanouts):
+        seed = int(rng.integers(0, 2 ** 62))
+        rec = {"hop": k, "seeds": int(cur.size), "fanout": f}
+        for t in threads:
+            ms = []
+            for _ in range(repeats):
+                t1 = time.perf_counter()
+                src, mask = native.sample_neighbors(indptr, indices, cur, f,
+                                                    seed, t)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            rec[f"ms_{t}_threads"] = float(np.median(ms))
+            rec[f"first_ms_{t}_threads"] = ms[0]
+            t1 = time.perf_counter()
+            ref = native.sample_neighbors_reference(indptr, indices, cur, f,
+                                                    seed, t)
+            rec[f"replay_s_{t}_threads"] = time.perf_counter() - t1
+            if not (np.array_equal(src, ref[0])
+                    and np.array_equal(mask, ref[1])):
+                raise AssertionError(
+                    f"host library, hop {k} at {t} threads: the draws differ "
+                    f"from the numpy replay in "
+                    f"{int((src != ref[0]).sum())} slots")
+        dst = np.repeat(cur, f)
+        query = dst[mask] * N + src[mask]
+        pos = np.minimum(np.searchsorted(keys, query), keys.size - 1)
+        if not np.array_equal(keys[pos], query):
+            raise AssertionError(f"host library, hop {k}: "
+                                 f"{int((keys[pos] != query).sum())} live "
+                                 "slots are not edges of the graph")
+        no_edge = (indptr[dst + 1] - indptr[dst]) == 0
+        if not (np.array_equal(~mask, no_edge)
+                and np.array_equal(src[~mask], dst[~mask])):
+            raise AssertionError(f"host library, hop {k}: dead slots are not "
+                                 "exactly the seeds without an edge, each "
+                                 "pointing at itself")
+        rec.update(live=int(mask.sum()), dead=int((~mask).sum()))
+        hops.append(rec)
+        cur = np.concatenate([cur, src[mask]])
+        cur = cur[np.sort(np.unique(cur, return_index=True)[1])]
+    if not sum(h["dead"] for h in hops):
+        raise AssertionError("host library: no dead slot drawn")
+    info = {"library": lib.name, "build_s": build_s,
+            "omp_threads": native.max_threads(), "cpus": os.cpu_count(),
+            "threads_checked": threads, "hops": hops}
+    print(f"[host-library] {json.dumps(info)}")
+    return info
+
+
+def phase_host_sampled_main_path(device: torch.device,
+                                 num_nodes: int = NUM_NODES,
+                                 epochs: int = SAMPLED_EPOCHS,
+                                 batch_size: int = SAMPLED_BATCH,
+                                 fanouts=SAMPLED_FANOUTS,
+                                 models=SAMPLED_MODELS):
+    """Host-sampled training through
+    experiment(wrapper="neighbor_sampling", device_features=True) on the
+    powerlaw graph at the bench's widths: GraphSAGE ``mean``, GraphSAGE
+    ``sum`` and GAT, each for one epoch and then for ``epochs`` from the
+    same seed. Checks the exact launch counts of every run
+    (:func:`_host_sampled_expected`; a CPU run none), that the losses are
+    finite and that the last epoch's mean loss is below the first
+    epoch's. Returns each run's step and evaluation times and losses, and
+    the launches by case of the ``epochs`` runs."""
+    g = _host_graph(num_nodes, device)
+    ds = Dataset.from_graph(g, name=f"powerlaw-{num_nodes}")
+    steps = -(-int(g.train_mask.sum()) // batch_size)
+    on_card = device.type == "cuda"
+    info, launches_by = {}, collections.defaultdict(dict)
+    for label, model, kw in models:
+        runs = []
+        for n_epochs in (1, epochs):
+            sk.reset_launch_counts()
+            results = experiment(
+                dataset=ds, model=model, wrapper="neighbor_sampling",
+                fanouts=fanouts, batch_size=batch_size, device_features=True,
+                epochs=n_epochs, patience=n_epochs + 1, seed=0,
+                device=str(device), **kw)
+            (res,) = next(iter(results.values()))
+            counts = _launch_counts()
+            expected = _host_sampled_expected(
+                model, kw.get("aggr"), n_epochs * steps, n_epochs + 1,
+                on_card)
+            if counts != expected:
+                raise AssertionError(
+                    f"host-sampled {label} ({n_epochs} epochs of {steps} "
+                    f"steps) launched {counts}; expected {expected}")
+            if not np.isfinite(res["train_loss"]):
+                raise AssertionError(f"host-sampled {label}: loss not "
+                                     f"finite: {res}")
+            runs.append(res)
+        for kernel, by_case in counts.items():
+            for case, v in by_case.items():
+                launches_by[kernel][case] = (
+                    launches_by[kernel].get(case, 0) + v)
+        first, last = runs[0]["train_loss"], runs[1]["train_loss"]
+        if not last < first:
+            raise AssertionError(f"host-sampled {label}: the mean loss of "
+                                 f"epoch {epochs} ({last}) is not below "
+                                 f"epoch 1's ({first})")
+        res = runs[1]
+        info[label] = {
+            "train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "losses": [first, last], "epochs": epochs,
+            "steps_per_epoch": steps,
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()}}
+    print(f"[host-sampled-main] {json.dumps(info)}")
+    info["launches_by"] = dict(launches_by)
+    return info
+
+
+def _host_k1_check(name: str, ex, d: str, feats, gen, device):
+    """K1 over one direction of a block's structure against its plain
+    version at each width of ``feats``: every element within
+    ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``, a second call equal bit for
+    bit. Returns the largest error over tolerance."""
+    ptr, col, w = (ex[f"spmm_{d}_{k}"] for k in ("ptr", "col", "w"))
+    sched = stored_schedule(ex, d)
+    worst = 0.0
+    for feat in feats:
+        x = torch.randn(ptr.numel() - 1, feat, generator=gen, device=device)
+        out = sk.spmm_csr(ptr, col, w, x, schedule=sched)
+        if not torch.equal(out, sk.spmm_csr(ptr, col, w, x, schedule=sched)):
+            raise AssertionError(f"{name} [{d},F={feat}]: a second call "
+                                 "gave other bits")
+        worst = max(worst, scaled_err(
+            out, sk.spmm_csr_reference(ptr, col, w, x),
+            sk.spmm_csr_reference(ptr, col, w.abs(), x.abs())))
+    return worst
+
+
+def host_profile(wrapper, batches: int, top: int = 10):
+    """Where the host's time a batch goes: ``cProfile`` over ``batches``
+    batches of the wrapper's batch factory (sampling and, when the model
+    reads it, the blocks' structure), run in this thread without the copy;
+    the ``top`` functions by their own time, in ms a batch. cProfile adds
+    to every Python call, not to the numpy and torch calls that hold the
+    time here."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    it = wrapper._epoch_batches()
+    prof.enable()
+    n = sum(1 for _ in itertools.islice(it, batches))
+    prof.disable()
+    it.close()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return {(f"{os.path.basename(fn)}:{line}({name})" if line else name):
+            v[2] * 1e3 / n for (fn, line, name), v in rows}
+
+
+def phase_host_sampled_check(device: torch.device, num_nodes: int = NUM_NODES,
+                             batch_size: int = SAMPLED_BATCH,
+                             fanouts=SAMPLED_FANOUTS, timing_batches: int = 8):
+    """One full-size host-sampled batch, drawn and prepared in the prefetch
+    worker and copied to ``device``: over each of its blocks and over a
+    block with no live edge (the frame's full height), K1 (CSR at F=100 and
+    128, CSC at 128) and K3 (three modes, both GAT shapes, attention dropout
+    0 and 0.6, every kernel by name: :func:`gat_single_check`) against
+    their plain versions; then GraphSAGE (each aggregator) and GAT with the
+    same weights, dropout off, over the batch on ``device`` and on the CPU
+    (the CPU takes the plain versions over the same structure): logits
+    within rtol 1e-4 / atol 1e-4. Last, the worker's own time a batch,
+    sampling and structure, over ``timing_batches`` batches for each model
+    of the main path, and :func:`host_profile` of GAT's. Returns the
+    errors, the differences and the times."""
+    g = add_self_loops(_host_graph(num_nodes, device))
+    gat = build_model("gat", in_features=FEAT_DIM, out_features=NUM_CLASSES,
+                      hidden_size=GAT_HEAD_DIM, nhead=GAT_HEADS, dropout=0.0,
+                      attn_drop=0.0)
+    w = SampledNodeClfWrapper(gat, fanouts=fanouts, batch_size=batch_size,
+                              device_features=True)
+    w.build_sampler(g)
+    it = iter(w.train_batches(g))
+    blocks = list(next(it))
+    it.close()
+    S, n_pad = blocks[0].num_nodes, blocks[0].n_pad
+    empty = prepare_spmm(from_coo(np.zeros((2, 0), np.int64), num_nodes=S,
+                                  n_pad=n_pad, e_pad=blocks[-1].e_pad))
+    gen = torch.Generator(device=device).manual_seed(3)
+    seed = torch.tensor([2024], dtype=torch.int64, device=device)
+    errs = {}
+    for label, b in ([(f"block{i}", b) for i, b in enumerate(blocks)]
+                     + [("no_live_edge", empty.to(device))]):
+        ex = b.extras
+        rec = {"edges": b.num_edges, "rows_with_edges": int(
+            (ex["spmm_fw_ptr"][1:] > ex["spmm_fw_ptr"][:-1]).sum()),
+               "cross_rows": {d: stored_schedule(ex, d).cross.shape[0]
+                              for d in ("fw", "bw")}}
+        rec["k1"] = max(
+            _host_k1_check(label, ex, "fw", (FEAT_DIM, HIDDEN), gen, device),
+            _host_k1_check(label, ex, "bw", (HIDDEN,), gen, device))
+        k3 = 0.0
+        for heads, head_dim in GAT_SHAPES:
+            t = _gat_inputs(n_pad, heads, head_dim, gen, device)
+            for mode in sk.GAT_MODES:
+                d = "bw" if mode == "dsrc" else "fw"
+                base = (mode, *(ex[f"spmm_{d}_{k}"]
+                                for k in ("ptr", "col", "orig")),
+                        t["sd"], t["ss"], t["smax"], t["h2"])
+                back = () if mode == "fwd" else (t["dagg"], t["dden"])
+                err, *_ = gat_single_check(
+                    f"host-sampled {label} gat_pass[{mode},H={heads}]", base,
+                    back, stored_schedule(ex, d), seed)
+                k3 = max(k3, err)
+        rec["k3"] = k3
+        errs[label] = rec
+        if not max(rec["k1"], rec["k3"]) <= 1.0:
+            raise AssertionError(f"host-sampled {label}: K1/K3 disagree with "
+                                 f"their plain versions: {rec}")
+    cpu_blocks = [b.to("cpu") for b in blocks]
+    diffs = {}
+    for label, model, kw in (
+            [(f"sage-{a}", "graphsage", {"hidden_size": HIDDEN, "aggr": a})
+             for a in SAGE_AGGREGATORS]
+            + [("gat", "gat", {"hidden_size": GAT_HEAD_DIM,
+                               "nhead": GAT_HEADS, "attn_drop": 0.0})]):
+        net = build_model(model, in_features=FEAT_DIM,
+                          out_features=NUM_CLASSES, dropout=0.0, **kw)
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            ref = net(cpu_blocks, frame_features(cpu_blocks))
+            out = copy.deepcopy(net).to(device)(
+                blocks, frame_features(blocks)).cpu()
+        diffs[label] = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"host-sampled {label}: {device.type} logits "
+                                 f"differ from CPU logits by {diffs[label]}")
+    host_ms = {}
+    for label, model, kw in SAMPLED_MODELS:
+        net = build_model(model, in_features=FEAT_DIM,
+                          out_features=NUM_CLASSES, **kw)
+        tw = SampledNodeClfWrapper(net, fanouts=fanouts,
+                                   batch_size=batch_size, device_features=True)
+        tw.build_sampler(g)
+        it = iter(tw.train_batches(g))
+        n = sum(1 for _ in itertools.islice(it, timing_batches))
+        it.close()
+        sample_ms, structure_ms = zip(*tw.host_ms)
+        host_ms[label] = {
+            "batches": n, "threads": tw._sampler.num_threads,
+            "sample_ms": float(np.median(sample_ms)),
+            "structure_ms": (None if structure_ms[0] is None
+                             else float(np.median(structure_ms)))}
+    info = {"frame_rows": n_pad, "frame_nodes": S, "blocks": errs,
+            "max_abs_diff": diffs, "host_ms": host_ms,
+            "host_profile_ms": host_profile(w, timing_batches)}
+    print(f"[host-sampled-check] {json.dumps(info)}")
+    return info
+
+
+def phase_host_sampled_bench(device: torch.device, scales=SAMPLED_SCALES,
+                             batch_size: int = SAMPLED_BATCH,
+                             fanouts=SAMPLED_FANOUTS, steps: int = 10,
+                             warmup: int = 3):
+    """``bench --sampled --host-sampler`` (GraphSAGE-mean) on each graph of
+    ``scales`` through ``bench.run_host_sampled``: ``step_ms``, ``value``
+    (padded block edges a second), ``seeds_per_sec``, ``setup_s``,
+    ``peak_hbm_bytes`` and the worker's sampling time a batch; no kernel
+    may be launched and the loss must be finite. Then, recorded with no
+    limit, ``torch.profiler``'s busy time and idle share over up to
+    ``steps`` further steps of a fresh epoch after ``warmup - 1`` steps
+    (:func:`profile_window`). Returns one record per scale."""
+    records = []
+    for nodes, avg_degree, products in scales:
+        argv = ["--sampled", "--host-sampler", "--batch-size",
+                str(batch_size), "--fanouts", ",".join(map(str, fanouts)),
+                "--steps", str(steps), "--warmup", str(warmup),
+                "--device", str(device)] + (["--products"] if products else [])
+        args = bench.parse_args(argv)
+        args.nodes, args.avg_degree = nodes, avg_degree
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        graph = bench.make_sampled_graph(args, device)
+        _sync(device)
+        graph_s = time.perf_counter() - t0
+        sk.reset_launch_counts()
+        payload = bench.run_host_sampled(args, graph=graph)
+        if _launch_counts():
+            raise AssertionError(f"host-sampled bench: launched "
+                                 f"{_launch_counts()}; expected none")
+        if not np.isfinite(payload["loss"]):
+            raise AssertionError(f"host-sampled bench: loss not finite: "
+                                 f"{payload}")
+        wrapper, opt = bench.host_sampled_state(args, graph, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        it = iter(wrapper.train_batches(graph))
+        bench.sampled_steps(wrapper, opt, itertools.islice(it, warmup - 1),
+                            gen)
+        ran = []
+        prof = profile_window(lambda: ran.extend(bench.sampled_steps(
+            wrapper, opt, itertools.islice(it, steps), gen)), device)
+        it.close()
+        if prof["busy_ms"] is not None:
+            prof["busy_ms_per_step"] = prof["busy_ms"] / len(ran)
+        prof["steps"] = len(ran)
+        del wrapper, opt
+        rec = {"nodes": nodes, "avg_degree": avg_degree,
+               "products": products, "edges": graph.num_edges,
+               "graph_s": graph_s, "profile": prof,
+               **{k: payload[k] for k in (
+                   "step_ms", "value", "seeds_per_sec", "setup_s",
+                   "edge_slots_per_step", "timed_steps", "loss",
+                   "host_threads", "host_sample_ms", "host_structure_ms",
+                   "peak_hbm_bytes") if k in payload}}
+        print(f"[host-sampled-bench] {json.dumps(rec)}")
+        records.append(rec)
         del graph
     return records
 
@@ -2532,7 +2936,7 @@ def main(argv=None) -> int:
     launches_by = {"spmm_csr": main_info["launches_by"],
                    "gat_pass": gat_info["launches_by"]}
     for e in entries:
-        kernel, *case = e.pop("case")
+        kernel, *case = e["case"]
         e["launches"] = launches_by[kernel].get(tuple(case), 0)
     # the products-scale slice
     timed(phase_accum_kernel_check, device)
@@ -2562,6 +2966,15 @@ def main(argv=None) -> int:
     sampled_info = timed(phase_sampled_main_path, device)
     timed(phase_sampled_check, device)
     sampled_bench = timed(phase_sampled_bench, device)
+    # host-sampled mini-batch training
+    timed(phase_host_library, device)
+    host_info = timed(phase_host_sampled_main_path, device)
+    timed(phase_host_sampled_check, device)
+    host_bench = timed(phase_host_sampled_bench, device)
+    for e in entries:
+        kernel, *case = e.pop("case", [None])
+        e["launches_host_sampled"] = host_info["launches_by"].get(
+            kernel, {}).get(tuple(case), 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
           f"eval_ms={main_info['eval_ms']:.3f}; GAT main path "
@@ -2584,6 +2997,12 @@ def main(argv=None) -> int:
           + "; sampled bench step_ms "
           + ", ".join(f"{r['model']}@{r['nodes']} {r['step_ms']:.3f}"
                       for r in sampled_bench)
+          + "; host-sampled train_step_ms "
+          + ", ".join(f"{k} {v['train_step_ms']:.3f}"
+                      for k, v in host_info.items() if k != "launches_by")
+          + "; host-sampled bench step_ms "
+          + ", ".join(f"sage@{r['nodes']} {r['step_ms']:.3f}"
+                      for r in host_bench)
           + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -5,6 +5,8 @@ sampled route (``bench_sampled_device``).
     python -m cogdl_tpu_torch.bench [--model gcn|gat] [--products] [--device cpu]
     python -m cogdl_tpu_torch.bench --sampled [--model sage|gat] [--products]
         [--batch-size 1024] [--fanouts 15,10] [--device cpu]
+    python -m cogdl_tpu_torch.bench --sampled --host-sampler [--products]
+        [--batch-size 1024] [--fanouts 15,10] [--device cpu]
 
 Measures the whole train step (forward, backward, Adam) on one NVIDIA card
 (``--device cpu`` runs the kernels' plain versions, for rehearsal only) and
@@ -30,8 +32,20 @@ graph is ``powerlaw_graph(..., device_features=True)`` with self loops, or
 under ``--products`` ``powerlaw_graph_device``. ``value`` counts edge slots
 a second, ``Σ_k sizes[k]·fanouts[k]`` a step (``plan_sizes``), beside
 ``step_ms`` and ``seeds_per_sec``. No sampled step runs a hand-written
-kernel. ``--host-sampler`` (the JAX script's host C++ sampler and prefetch
-pipeline) is not ported yet and raises.
+kernel.
+
+``--sampled --host-sampler`` is the JAX script's host pipeline
+(``bench_sampled``): the ``neighbor_sampling`` wrapper's C++ sampler on the
+host, in a prefetch worker that copies each batch to the card, feeding
+GraphSAGE (mean, as the JAX script; ``--model gat`` raises) at dropout 0,
+Adam 1e-2, over the same graph as the device route with the features kept
+on the device (``device_features``). After ``--warmup`` steps it times up
+to ``--steps`` further steps of the same epoch's iterator (one iterator, as
+the JAX script; fewer when the epoch ends first, ``timed_steps``).
+``value`` counts padded block edges, ``Σ e_pad`` a step. The line adds the
+worker's own time a batch (medians): sampling (``host_sample_ms``) and the
+blocks' kernel structure (``host_structure_ms``, null for GraphSAGE-mean,
+which reads none).
 
 Not ported from the JAX script: ``--bf16``, ``--act-compress``, ``--remat``,
 ``--reorder*``, and the flags that only switch TPU layouts. The result line
@@ -42,6 +56,7 @@ rates of other hardware.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -57,7 +72,10 @@ from .ops import cache_propagation
 from .ops.cuda import prepare_spmm, prepare_spmm_device
 from .trainer.trainer import resolve_device
 from .utils.evaluator import masked_cross_entropy
-from .wrappers.sampled_node_classification import DeviceSampledNodeClfWrapper
+from .wrappers.sampled_node_classification import (
+    DeviceSampledNodeClfWrapper,
+    SampledNodeClfWrapper,
+)
 
 PRODUCTS_NODES, PRODUCTS_AVG_DEGREE = 2_450_000, 50
 
@@ -94,8 +112,8 @@ def get_parser() -> argparse.ArgumentParser:
                     help="mini-batch neighbor-sampled training with the "
                     "on-device sampler")
     ap.add_argument("--host-sampler", action="store_true",
-                    help="--sampled with the host sampler pipeline: not yet "
-                    "ported (raises)")
+                    help="--sampled with the host sampler and prefetch "
+                    "pipeline (GraphSAGE only)")
     ap.add_argument("--batch-size", type=int, default=1024,
                     help="--sampled: seed nodes a step")
     ap.add_argument("--fanouts", default="15,10",
@@ -211,10 +229,10 @@ def fanouts_of(args: argparse.Namespace) -> Tuple[int, ...]:
 
 def sampled_state(args: argparse.Namespace, graph: Graph,
                   device: torch.device):
-    """``(wrapper, optimizer, seed_rows)``: the model of ``make_model`` in
-    the device-sampled wrapper whose loss a step takes, and the shuffled
-    seed rows of enough epochs for ``--warmup`` + ``--steps`` steps,
-    ``int32[rows, B]`` on the device."""
+    """``(wrapper, optimizer, batches)``: the model of ``make_model`` in
+    the device-sampled wrapper whose loss a step takes, and one batch per
+    shuffled seed row of enough epochs for ``--warmup`` + ``--steps``
+    steps, the rows ``int32[B]`` on the device."""
     fanouts = fanouts_of(args)
     model, optimizer = make_model(args, graph, device)
     wrapper = DeviceSampledNodeClfWrapper(model, fanouts=fanouts,
@@ -224,22 +242,27 @@ def sampled_state(args: argparse.Namespace, graph: Graph,
     rows = [sampler.epoch_seeds()]
     while sum(r.shape[0] for r in rows) < args.warmup + args.steps:
         rows.append(sampler.epoch_seeds())   # span epochs if the split is small
-    return wrapper, optimizer, torch.from_numpy(np.concatenate(rows)).to(device)
+    seed_rows = torch.from_numpy(np.concatenate(rows)).to(device)
+    return wrapper, optimizer, [wrapper.make_batch(graph, s)
+                                for s in seed_rows]
 
 
-def sampled_steps(wrapper, optimizer, graph: Graph, seed_rows: torch.Tensor,
+def sampled_steps(wrapper, optimizer, batches,
                   generator: torch.Generator) -> List[float]:
-    """One train step per seed row (sampling, the frame's gather, forward,
-    cross-entropy on the seed rows, backward, Adam); returns each step's
-    loss, read after one synchronisation at the end."""
+    """One train step per batch of ``batches``, the wrapper's own (a seed
+    row's for the device sampler, a block tuple for the host sampler):
+    the wrapper's loss (the device sampler samples inside it), backward,
+    Adam; returns each step's loss, read after one synchronisation at the
+    end."""
     losses = []
-    for seeds in seed_rows:
+    for batch in batches:
         optimizer.zero_grad(set_to_none=True)
-        loss = wrapper.loss(wrapper.make_batch(graph, seeds), generator)
+        loss = wrapper.loss(batch, generator)
         loss.backward()
         optimizer.step()
         losses.append(loss.detach())
-    _sync(graph.device)
+    if losses:
+        _sync(losses[0].device)
     return [float(x) for x in losses]
 
 
@@ -250,26 +273,23 @@ def run_sampled(args: argparse.Namespace, graph: Optional[Graph] = None
     timed loops over the same ``--steps`` seed rows, synced at the end;
     returns the result line's payload."""
     if args.host_sampler:
-        raise NotImplementedError(
-            "bench --sampled --host-sampler (the host sampler pipeline) is "
-            "not yet ported to cogdl_tpu_torch (ROADMAP.md §1, item 11e)")
+        return run_host_sampled(args, graph)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     if graph is None:
         graph = make_sampled_graph(args, device)
-    wrapper, optimizer, seed_rows = sampled_state(args, graph, device)
+    wrapper, optimizer, batches = sampled_state(args, graph, device)
     _sync(device)
     setup_s = time.perf_counter() - t0
     generator = torch.Generator(device=device).manual_seed(1)
-    sampled_steps(wrapper, optimizer, graph, seed_rows[: args.warmup],
-                  generator)
-    timed = seed_rows[args.warmup: args.warmup + args.steps]
+    sampled_steps(wrapper, optimizer, batches[: args.warmup], generator)
+    timed = batches[args.warmup: args.warmup + args.steps]
     dt = float("inf")
     for _ in range(max(args.repeats, 1)):
         t0 = time.perf_counter()
-        losses = sampled_steps(wrapper, optimizer, graph, timed, generator)
+        losses = sampled_steps(wrapper, optimizer, timed, generator)
         dt = min(dt, time.perf_counter() - t0)
     B, fanouts = args.batch_size, fanouts_of(args)
     sizes = plan_sizes(B, fanouts)
@@ -287,6 +307,90 @@ def run_sampled(args: argparse.Namespace, graph: Optional[Graph] = None
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "setup_s": setup_s,
+    }
+    if device.type == "cuda":
+        payload["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return payload
+
+
+def host_sampled_state(args: argparse.Namespace, graph: Graph,
+                       device: torch.device):
+    """``(wrapper, optimizer)``: the model of ``make_model`` in the
+    ``neighbor_sampling`` wrapper over ``graph`` (features on the device),
+    its sampler built and the shape-defining batch drawn, as the JAX
+    script's ``wrapper.init``."""
+    model, optimizer = make_model(args, graph, device)
+    wrapper = SampledNodeClfWrapper(model, fanouts=fanouts_of(args),
+                                    batch_size=args.batch_size,
+                                    device_features=True)
+    wrapper.build_sampler(graph)
+    wrapper.draw_init_batch()
+    return wrapper, optimizer
+
+
+def _median(values) -> Optional[float]:
+    values = [v for v in values if v is not None]
+    return float(np.median(values)) if values else None
+
+
+def run_host_sampled(args: argparse.Namespace, graph: Optional[Graph] = None
+                     ) -> Dict[str, Any]:
+    """``--sampled --host-sampler``: build the graph (unless given one on
+    the device), the wrapper and its sampler, then one epoch's iterator:
+    ``--warmup`` steps, then up to ``--steps`` timed steps, synced at the
+    end; returns the result line's payload."""
+    if args.model != "sage":
+        raise ValueError(
+            "bench --host-sampler runs GraphSAGE (mean) only, as the JAX "
+            f"script's host-sampled bench does; got --model {args.model}")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if graph is None:
+        graph = make_sampled_graph(args, device)
+    wrapper, optimizer = host_sampled_state(args, graph, device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    generator = torch.Generator(device=device).manual_seed(1)
+    it = iter(wrapper.train_batches(graph))
+    try:
+        first = next(it)
+        edge_slots = sum(b.e_pad for b in first)
+        warm = sampled_steps(wrapper, optimizer, itertools.islice(
+            itertools.chain([first], it), args.warmup), generator)
+        if len(warm) < args.warmup:
+            raise SystemExit("--host-sampler: the epoch is shorter than "
+                             "--warmup; lower --batch-size or --warmup")
+        t0 = time.perf_counter()
+        losses = sampled_steps(wrapper, optimizer,
+                               itertools.islice(it, args.steps), generator)
+        dt = time.perf_counter() - t0
+    finally:
+        it.close()
+    n = len(losses)
+    if n == 0:
+        raise SystemExit("--host-sampler: no timed steps left in the epoch; "
+                         "lower --batch-size/--warmup or raise --nodes")
+    sample_ms, structure_ms = zip(*wrapper.host_ms)
+    B = args.batch_size
+    payload = {
+        "metric": f"SAGE sampled-train edge-slots/sec (1 device, host "
+                  f"sampler, powerlaw {args.nodes}n x{args.avg_degree}, "
+                  f"fanouts {args.fanouts}, B={B})",
+        "value": round(edge_slots * n / dt),
+        "unit": "edges/sec",
+        "step_ms": 1000 * dt / n,
+        "seeds_per_sec": round(B * n / dt),
+        "edge_slots_per_step": edge_slots,
+        "timed_steps": n,
+        "loss": losses[-1],
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "setup_s": setup_s,
+        "host_threads": wrapper._sampler.num_threads,
+        "host_sample_ms": _median(sample_ms),
+        "host_structure_ms": _median(structure_ms),
     }
     if device.type == "cuda":
         payload["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated(device))

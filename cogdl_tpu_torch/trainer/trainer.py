@@ -295,10 +295,12 @@ class Trainer:
                     patience_left -= cfg.eval_step
                     if patience_left <= 0:
                         break
-            # every 20th epoch whatever eval_step is, the last batch's loss
-            # (cogdl_tpu/trainer/trainer.py:411-413)
+            # every 20th epoch whatever eval_step is: the mean over the
+            # epoch's steps under the epoch protocol, else the last batch's
+            # loss (cogdl_tpu/trainer/trainer.py:357,411-413)
             if cfg.progress and epoch % 20 == 0:
-                print(f"epoch {epoch}: loss={float(losses[-1]):.4f}")
+                shown = torch.stack(losses).mean() if epoch_rows else losses[-1]
+                print(f"epoch {epoch}: loss={float(shown):.4f}")
 
         if cfg.checkpoint_path:
             from .checkpoint import save_checkpoint

@@ -1,9 +1,9 @@
 """Task wrappers — the port of ``cogdl_tpu/wrappers/__init__.py``. A wrapper
 owns the task-specific pieces (data preparation, loss, evaluation); the
 Trainer stays task-agnostic. Full-batch node classification and its
-device-sampled form are ported so far; the host-sampled wrappers
-(``neighbor_sampling``, ``cluster``, ``graphsaint``) and the rest wait in
-ROADMAP.md §1."""
+neighbor-sampled forms (host and device sampler) are ported so far; the
+cluster and GraphSAINT wrappers (``cluster``, ``graphsaint``) and the rest
+wait in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ from typing import Dict
 SUPPORTED_WRAPPERS: Dict[str, str] = {
     "node_classification":
         "cogdl_tpu_torch.wrappers.node_classification.NodeClfWrapper",
+    "neighbor_sampling":
+        "cogdl_tpu_torch.wrappers.sampled_node_classification."
+        "SampledNodeClfWrapper",
     "neighbor_sampling_device":
         "cogdl_tpu_torch.wrappers.sampled_node_classification."
         "DeviceSampledNodeClfWrapper",

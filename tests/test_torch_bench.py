@@ -139,9 +139,38 @@ def test_sampled_graph_carries_features_on_the_device():
     assert int((g.row[:E] == g.col[:E]).sum()) == 2000   # one self loop each
 
 
-def test_host_sampler_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        bench.main(SAMPLED + ["--host-sampler"])
+HOST_FIELDS = {"metric", "value", "unit", "step_ms", "seeds_per_sec",
+               "edge_slots_per_step", "timed_steps", "loss", "device",
+               "setup_s", "host_threads", "host_sample_ms",
+               "host_structure_ms"}
+
+
+def test_host_sampler_emits_its_fields(capsys):
+    """GraphSAGE-mean over the host sampler's blocks: padded block edges a
+    step, the worker's own sampling time a batch, no structure built and
+    no kernel launched."""
+    sk.reset_launch_counts()
+    payload = bench.main(SAMPLED + ["--host-sampler", "--steps", "3"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 1 and json.loads(lines[0]) == payload
+    assert set(payload) == HOST_FIELDS          # a CPU run: no peak_hbm_bytes
+    # e_pad of the blocks: _bucket(24·2) + _bucket(8·2)
+    assert payload["edge_slots_per_step"] == 48 + 16
+    assert payload["timed_steps"] == 3
+    assert payload["value"] == pytest.approx(
+        64 * 1000 / payload["step_ms"], abs=0.5)
+    assert payload["metric"].startswith("SAGE sampled-train")
+    assert "host sampler" in payload["metric"]
+    assert payload["host_sample_ms"] > 0 and payload["host_threads"] >= 1
+    assert payload["host_structure_ms"] is None      # mean reads none
+    assert payload["loss"] > 0 and "vs_baseline" not in payload
+    assert (sk.spmm_csr.launches, sk.gat_pass.launches) == (0, 0)
+
+
+def test_host_sampler_refuses_gat():
+    # the JAX script's host bench builds GraphSAGE only
+    with pytest.raises(ValueError, match="GraphSAGE"):
+        bench.main(SAMPLED + ["--host-sampler", "--model", "gat"])
 
 
 def test_runs_on_the_card_unless_told_otherwise():

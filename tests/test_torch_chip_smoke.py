@@ -66,7 +66,7 @@ def test_adversarial_phase_rehearsal():
     # one width, the one with two columns a lane
     report = cs.phase_adversarial(CPU, feats=(47,))   # K3 at every shape
     assert list(report) == ["star", "mixed_rows", "no_edge",
-                            "middle_third_unnamed", "powerlaw"]
+                            "middle_third_unnamed", "powerlaw", "host_block"]
     assert set(report.values()) == {0.0}   # the plain version on both sides
 
 
@@ -84,6 +84,11 @@ def test_adversarial_structures_are_what_their_names_say():
     _, col, n = found["middle_third_unnamed"]
     assert not ((col >= n // 3) & (col < 2 * (n // 3))).any()
     assert (col < n // 3).any() and (col >= 2 * (n // 3)).any()
+    row, col, n = found["host_block"]
+    lens = torch.bincount(row, minlength=n)
+    assert lens[:24].tolist() == [15] * 8 + [10] * 16
+    assert not lens[24:].any()                 # the sink row among them
+    assert int(torch.bincount(col, minlength=n).max()) > t  # a cut CSC row
     # built from the seed: the same lists every time
     again = {n: rest for n, *rest in cs.adversarial_structures(CPU, chunk=t)}
     assert all(torch.equal(found[k][1], again[k][1]) for k in found)
@@ -760,6 +765,102 @@ def test_sampled_bench_phase_rehearsal():
         assert "peak_hbm_bytes" not in r
     # the products route: the device generator's undirected graph
     assert records[2]["edges"] == 3000 * 10 + 3000
+
+
+def test_host_library_phase_rehearsal():
+    info = cs.phase_host_library(CPU, num_nodes=300, **SAMPLED_TINY)
+    assert info["threads_checked"] == sorted({1, cs.native.max_threads()})
+    assert [h["seeds"] for h in info["hops"]][0] == 8
+    assert sum(h["dead"] for h in info["hops"]) > 0
+    for h in info["hops"]:
+        assert h["live"] + h["dead"] == h["seeds"] * h["fanout"]
+
+
+def test_host_library_phase_catches_draws_off_the_replay(monkeypatch):
+    real = cs.native.sample_neighbors
+
+    def one_slot_off(*a, **kw):
+        src, mask = real(*a, **kw)
+        src[0] += 1
+        return src, mask
+
+    monkeypatch.setattr(cs.native, "sample_neighbors", one_slot_off)
+    with pytest.raises(AssertionError, match="numpy replay"):
+        cs.phase_host_library(CPU, num_nodes=300, **SAMPLED_TINY)
+
+
+def test_host_sampled_launches_expected_per_step_and_evaluation():
+    """Per step: GraphSAGE-sum 2 K1 over the CSR (F=100, 128) and 1 over the
+    CSC (F=128); GAT 2 each of K3 fwd, dsd, dsrc. Each evaluation adds the
+    full-batch model's."""
+    assert cs._host_sampled_expected("graphsage", "mean", 10, 6, True) == {}
+    assert cs._host_sampled_expected("graphsage", "sum", 10, 6, True) == {
+        "spmm_csr": {("csr", 100): 16, ("csr", 128): 16, ("csc", 128): 10}}
+    assert cs._host_sampled_expected("gat", None, 10, 6, True) == {
+        "gat_pass": {("fwd", 8, 16): 16, ("fwd", 1, 47): 16,
+                     ("dsd", 8, 16): 10, ("dsd", 1, 47): 10,
+                     ("dsrc", 8, 16): 10, ("dsrc", 1, 47): 10}}
+    assert cs._host_sampled_expected("gat", None, 10, 6, False) == {}
+
+
+def test_host_sampled_main_path_phase_rehearsal():
+    info = cs.phase_host_sampled_main_path(CPU, num_nodes=300, epochs=3,
+                                           **SAMPLED_TINY)
+    assert info.pop("launches_by") == {}
+    assert list(info) == ["sage-mean", "sage-sum", "gat"]
+    for run in info.values():
+        assert run["launches"] == {}   # CPU tensors never launch a kernel
+        assert run["losses"][1] < run["losses"][0] and run["epochs"] == 3
+        assert run["train_step_ms"] > 0 and run["steps_per_epoch"] >= 2
+
+
+def test_host_sampled_main_path_catches_a_launch_count_off(monkeypatch):
+    from cogdl_tpu_torch.wrappers import sampled_node_classification as snc
+
+    real = snc.SampledNodeClfWrapper.loss
+
+    def loss_and_count(self, *a, **kw):
+        cs.sk.spmm_csr.launches += 1
+        cs.sk.spmm_csr.launches_by[("csr", 8)] += 1
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(snc.SampledNodeClfWrapper, "loss", loss_and_count)
+    with pytest.raises(AssertionError, match="host-sampled sage-mean"):
+        cs.phase_host_sampled_main_path(CPU, num_nodes=300, epochs=2,
+                                        models=cs.SAMPLED_MODELS[:1],
+                                        **SAMPLED_TINY)
+    cs.sk.reset_launch_counts()
+
+
+def test_host_sampled_check_phase_rehearsal():
+    info = cs.phase_host_sampled_check(CPU, num_nodes=300, timing_batches=2,
+                                       **SAMPLED_TINY)
+    assert list(info["blocks"]) == ["block0", "block1", "no_live_edge"]
+    assert info["blocks"]["no_live_edge"]["edges"] == 0
+    for rec in info["blocks"].values():
+        assert rec["k1"] == rec["k3"] == 0.0     # the plain version twice
+    assert set(info["max_abs_diff"].values()) == {0.0}
+    assert info["host_ms"]["sage-mean"]["structure_ms"] is None
+    for label in ("sage-sum", "gat"):
+        assert info["host_ms"][label]["structure_ms"] > 0
+    assert info["frame_rows"] == 80               # _bucket(72 + 1)
+    prof = info["host_profile_ms"]
+    assert len(prof) == 10 and min(prof.values()) >= 0
+
+
+def test_host_sampled_bench_phase_rehearsal():
+    records = cs.phase_host_sampled_bench(
+        CPU, scales=((2000, 10, False), (3000, 10, True)), steps=2,
+        warmup=2, **SAMPLED_TINY)
+    assert [r["products"] for r in records] == [False, True]
+    for r in records:
+        assert r["step_ms"] > 0 and r["value"] > 0 and r["seeds_per_sec"] > 0
+        assert r["edge_slots_per_step"] == 64 and r["timed_steps"] == 2
+        assert r["host_sample_ms"] > 0 and r["host_structure_ms"] is None
+        # no card: the profiler window runs nothing
+        assert r["profile"]["busy_ms"] is None and r["profile"]["steps"] == 0
+        assert "peak_hbm_bytes" not in r
+    assert records[1]["edges"] == 3000 * 10 + 3000
 
 
 def test_busy_time_counts_overlaps_once():

@@ -684,7 +684,7 @@ from cogdl_tpu_torch.ops.cuda import (  # noqa: E402
 )
 
 ADVERSARIAL = ("star", "mixed_rows", "no_edge", "middle_third_unnamed",
-               "powerlaw")
+               "powerlaw", "host_block")
 
 
 def _adversarial(dev, name, direction, panel_rows=0):
@@ -1112,3 +1112,106 @@ def test_sampled_train_step_launches_no_kernel_and_waits_for_nothing(dev,
     assert torch.stack(losses).isfinite().all()
     assert (spmm_csr.launches, spmm_csr_accum.launches,
             gat_pass.launches) == (0, 0, 0)
+
+
+# -- host-sampled mini-batch training ----------------------------------------
+
+from cogdl_tpu_torch.data.sampling import Prefetcher  # noqa: E402
+from cogdl_tpu_torch.wrappers.sampled_node_classification import (  # noqa: E402
+    SampledNodeClfWrapper,
+)
+
+
+def _host_sampled(dev, model, **kw):
+    """A small device_features graph on the card and the neighbor_sampling
+    wrapper over it, its sampler built (seed 1)."""
+    from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph
+
+    g = add_self_loops(powerlaw_graph(3000, avg_degree=8, feat_dim=16,
+                                      num_classes=5, device_features=True,
+                                      device=dev))
+    net = build_model(model, in_features=16, out_features=5, hidden_size=8,
+                      **kw)
+    w = SampledNodeClfWrapper(net, fanouts=(4, 3), batch_size=32, seed=1,
+                              device_features=True)
+    w.build_sampler(g)
+    return g, net, w
+
+
+def _tensors(item):
+    """Every tensor of a batch of blocks, by field, in order."""
+    out = []
+    for b in item:
+        for name in b.__dataclass_fields__:
+            v = getattr(b, name)
+            if isinstance(v, torch.Tensor):
+                out.append((name, v))
+        out += sorted((b.extras or {}).items())
+    return out
+
+
+def test_prefetched_host_batches_land_on_the_card_as_drawn(dev):
+    """Each batch the worker copies to the card (pinned, on its own
+    stream) equals the same seed's batch left on the host, the blocks'
+    kernel structure included; the resident feature table is not
+    copied."""
+    g, _, w = _host_sampled(dev, "gat", nhead=2)
+    _, _, twin = _host_sampled(dev, "gat", nhead=2)
+    on_card = list(w.train_batches(g))
+    on_host = list(Prefetcher(twin._epoch_batches))
+    assert len(on_card) == len(on_host) == len(w._sampler)
+    for a, b in zip(on_card, on_host):
+        assert "spmm_fw_orig" in a[0].extras
+        assert a[0].extras["x_table"] is g.x
+        for (na, ta), (nb, tb) in zip(_tensors(a), _tensors(b)):
+            assert na == nb and ta.is_cuda
+            assert torch.equal(ta, tb.to(dev)), na
+
+
+@pytest.mark.parametrize("model,kw,per_step", [
+    ("graphsage", {"aggr": "sum"},
+     {"spmm_csr": {("csr", 16): 1, ("csr", 8): 1, ("csc", 8): 1}}),
+    ("graphsage", {"aggr": "mean"}, {}),
+    ("gat", {"nhead": 2},
+     {"gat_pass": {(m, h, d): 1 for m in ("fwd", "dsd", "dsrc")
+                   for h, d in ((2, 8), (1, 5))}}),
+])
+def test_host_sampled_step_launches_k1_k3_and_waits_for_nothing(dev, model,
+                                                                kw, per_step):
+    """A host-sampled step on the card: K1 over each block's CSR (and the
+    hidden layer's CSC backward) for GraphSAGE ``sum``, K3's three modes
+    a layer for GAT, nothing for ``mean``; and no operation that makes the
+    host wait for the card (sync debug mode raises on one)."""
+    g, net, w = _host_sampled(dev, model, **kw)
+    net.to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = list(w.train_batches(g))
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        loss = w.loss(batch, gen)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    losses = []
+    for batch in batches[1:]:
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses.append(step(batch))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert {f.__name__: dict(f.launches_by) for f in
+                (spmm_csr, spmm_csr_accum, gat_pass) if f.launches} == per_step
+    assert torch.stack(losses).isfinite().all()
+
+
+def test_host_sampled_blocks_run_k1_k3_like_their_plain_versions(dev):
+    info = chip_smoke.phase_host_sampled_check(
+        dev, num_nodes=5000, batch_size=64, fanouts=(5, 3), timing_batches=2)
+    assert max(info["max_abs_diff"].values()) < 1e-4
+    assert all(max(r["k1"], r["k3"]) <= 1.0 for r in info["blocks"].values())

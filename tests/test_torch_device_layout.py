@@ -626,7 +626,7 @@ def _assert_within_terms(out, ref, scale):
 
 CPU = torch.device("cpu")
 ADVERSARIAL = ("star", "mixed_rows", "no_edge", "middle_third_unnamed",
-               "powerlaw")
+               "powerlaw", "host_block")
 CHUNKS = (4, 32, 128)
 
 

@@ -386,8 +386,7 @@ def test_wrapper_seed_follows_the_variant_seed():
     assert w.seed == 7 and tk["seed"] == 7 and w.fanouts == (3, 3)
 
 
-@pytest.mark.parametrize("name", ["neighbor_sampling", "cluster",
-                                  "graphsaint"])
+@pytest.mark.parametrize("name", ["cluster", "graphsaint"])
 def test_host_sampled_wrappers_are_not_ported(name):
     with pytest.raises(ValueError, match="not yet ported"):
         fetch_wrapper(name)

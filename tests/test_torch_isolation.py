@@ -64,6 +64,8 @@ def test_scan_covers_the_bench_and_the_kernel_wrappers():
             "cogdl_tpu_torch/models/nn/graphsage.py",
             "cogdl_tpu_torch/utils/timing.py",
             "cogdl_tpu_torch/data/device_sampling.py",
+            "cogdl_tpu_torch/data/sampling.py",
+            "cogdl_tpu_torch/native.py",
             "cogdl_tpu_torch/wrappers/sampled_node_classification.py",
             "chip_smoke.py"} <= scanned
 

@@ -349,3 +349,38 @@ def test_epoch_protocol_takes_one_step_a_row(raw_graphs):
     assert seen == [1, 2, 3, 4, 5, 6]
     assert res["train_loss"] == pytest.approx(np.mean(w.losses[3:]),
                                               rel=1e-6)
+
+
+class _ScaledRowWrapper(_RowWrapper):
+    """The epoch protocol with step losses far apart: row ``i``'s loss is
+    scaled by ``i + 1``."""
+
+    def loss(self, graph, generator=None, training=True):
+        return NodeClfWrapper.loss(self, graph, generator, training) * (
+            self.rows[-1] + 1)
+
+
+def test_progress_prints_the_epoch_mean_under_the_epoch_protocol(
+        raw_graphs, capsys):
+    """F3: under the epoch protocol the printed loss is the mean over the
+    epoch's steps, as the reference prints ``mean(losses[-1])`` of its
+    scanned epoch (cogdl_tpu/trainer/trainer.py:357,411-413)."""
+    _, gt_raw = raw_graphs
+    w = _ScaledRowWrapper(build_model("gcn", **MODEL_KW))
+    losses = []
+    trainer = Trainer(TrainerConfig(device="cpu", epochs=1, progress=True,
+                                    patience=10))
+    real_step = trainer.train_step
+
+    def step(*a):
+        out = real_step(*a)
+        losses.append(float(out))
+        return out
+
+    trainer.train_step = step
+    trainer.run(w, gt_raw)
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("epoch ")]
+    assert len(losses) == 3 and losses[2] > 2 * losses[0]
+    assert float(line.split("loss=")[1]) == pytest.approx(np.mean(losses),
+                                                          abs=5e-5)
