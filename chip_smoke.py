@@ -36,7 +36,15 @@ exact launch counts (K1 and K3 over a fresh block structure every step),
 K1 and K3 over a full-size host block against their plain versions, card
 against CPU logits over it, and ``bench --sampled --host-sampler`` at 100k
 and products with the worker's own time a batch and ``torch.profiler``'s
-busy time. Prints one JSON line of kernel measurements and, last,
+busy time; then ClusterGCN and GraphSAINT: GCN through
+``experiment(wrapper="cluster")`` and GraphSAINT (and GCN under its
+wrapper) through ``experiment(model="graphsaint")`` with exact launch
+counts (K1 over a fresh subgraph structure every step, at F=256 for
+GraphSAINT's concatenated orders), K1 over a full-size cluster and SAINT
+batch against its plain version at every width those paths run, card
+against CPU logits over both, ``bfs_partition``'s time, the worker's time a
+batch and ``torch.profiler``'s busy time. Prints one JSON line of kernel
+measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails. ``--gather-only`` builds the kernels and runs only the
 gather probes' kernel check; its last line says ``"gather_only": true``.
@@ -68,7 +76,7 @@ from cogdl_tpu_torch.data.device_sampling import (
     sample_blocks_device,
 )
 from cogdl_tpu_torch.data.graph import add_self_loops, from_coo, sym_norm
-from cogdl_tpu_torch.data.sampling import graph_csr
+from cogdl_tpu_torch.data.sampling import bfs_partition, graph_csr
 from cogdl_tpu_torch.datasets.dataset import Dataset
 from cogdl_tpu_torch.datasets.synthetic import (
     powerlaw_graph,
@@ -99,6 +107,8 @@ from cogdl_tpu_torch.scripts import microbench_gather as mg
 from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 from cogdl_tpu_torch.wrappers.sampled_node_classification import (
+    ClusterNodeClfWrapper,
+    GraphSAINTWrapper,
     SampledNodeClfWrapper,
 )
 
@@ -2883,6 +2893,290 @@ def phase_host_sampled_bench(device: torch.device, scales=SAMPLED_SCALES,
     return records
 
 
+# ---------------------------------------------------------------------------
+# Subgraph mini-batch training: ClusterGCN and GraphSAINT, K1 over a fresh
+# subgraph structure every step
+# ---------------------------------------------------------------------------
+
+# the cluster wrapper's defaults: 20 BFS parts, 5 a batch (4 steps an epoch,
+# about 25k nodes a batch at 100k)
+CLUSTER_KW = {"n_clusters": 20, "cluster_batch": 5}
+# GraphSAINT at the bench's widths: architecture 1-1-0 at hidden 128, so its
+# second layer's A·h runs at F = 2 x 128 (the first layer concatenates two
+# orders); random walks of 4 steps from 2000 roots, 8 batches an epoch, the
+# estimator over 40 draws
+SAINT_MODEL_KW = {"hidden_size": HIDDEN, "architecture": "1-1-0"}
+SAINT_KW = {"sampler": "walk", "walk_roots": 2000, "walk_length": 4,
+            "batches_per_epoch": 8, "est_samples": 40}
+SAINT_WIDTH = 2 * HIDDEN
+SUBGRAPH_EPOCHS = 3
+
+
+def _subgraph_expected(model: str, steps: int, evals: int, on_card: bool):
+    """K1's launches in a cluster or GraphSAINT run, by case. Each train
+    step runs over its batch's fresh structure. GCN: each layer's forward
+    over the CSR and backward over the CSC, at F=128 and F=47: 4 a step.
+    GraphSAINT 1-1-0: layer 0's A·x at F=100 over the CSR only (x takes no
+    gradient), layer 1's A·h at F=256 over the CSR and the CSC, layer 2
+    (order 0) none: 3 a step. Each full-batch evaluation adds the
+    forward's CSR calls."""
+    if not on_card:
+        return {}
+    if model == "gcn":
+        fw = bw = (HIDDEN, NUM_CLASSES)
+    else:
+        fw, bw = (FEAT_DIM, SAINT_WIDTH), (SAINT_WIDTH,)
+    expected = {("csr", f): steps + evals for f in fw}
+    expected.update({("csc", f): steps for f in bw})
+    return {"spmm_csr": expected}
+
+
+def _subgraph_main(tag: str, device: torch.device, num_nodes: int,
+                   runs, saint_kw=None):
+    """Each ``(label, model, wrapper, model kwargs, epoch counts)`` of
+    ``runs`` through ``experiment()`` on the host-sampled phases' graph,
+    once for each epoch count from the same seed: the exact K1 launches
+    (:func:`_subgraph_expected`), finite losses and, over more than one
+    count, the last epoch's mean loss below the first epoch's. Returns
+    each label's times and losses and the launches by case of its last
+    run, summed over the labels."""
+    g = _host_graph(num_nodes, device)
+    ds = Dataset.from_graph(g, name=f"powerlaw-{num_nodes}")
+    on_card = device.type == "cuda"
+    info, launches_by = {}, collections.defaultdict(dict)
+    for label, model, wrapper, model_kw, epoch_counts in runs:
+        kw = dict(model_kw, **(CLUSTER_KW if wrapper == "cluster"
+                               else saint_kw))
+        steps = (-(-CLUSTER_KW["n_clusters"] // CLUSTER_KW["cluster_batch"])
+                 if wrapper == "cluster" else saint_kw["batches_per_epoch"])
+        losses = []
+        for n_epochs in epoch_counts:
+            sk.reset_launch_counts()
+            results = experiment(
+                dataset=ds, model=model, wrapper=wrapper, epochs=n_epochs,
+                patience=n_epochs + 1, seed=0, device=str(device), **kw)
+            (res,) = next(iter(results.values()))
+            counts = _launch_counts()
+            expected = _subgraph_expected(model, n_epochs * steps,
+                                          n_epochs + 1, on_card)
+            if counts != expected:
+                raise AssertionError(
+                    f"{tag} {label} ({n_epochs} epochs of {steps} steps) "
+                    f"launched {counts}; expected {expected}")
+            if not np.isfinite(res["train_loss"]):
+                raise AssertionError(f"{tag} {label}: loss not finite: {res}")
+            losses.append(res["train_loss"])
+        if len(losses) > 1 and not losses[-1] < losses[0]:
+            raise AssertionError(
+                f"{tag} {label}: the mean loss of epoch {epoch_counts[-1]} "
+                f"({losses[-1]}) is not below epoch {epoch_counts[0]}'s "
+                f"({losses[0]})")
+        for kernel, by_case in counts.items():
+            for case, v in by_case.items():
+                launches_by[kernel][case] = (
+                    launches_by[kernel].get(case, 0) + v)
+        info[label] = {
+            "train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "losses": losses, "epochs": list(epoch_counts),
+            "steps_per_epoch": steps,
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()}}
+    print(f"[{tag}] {json.dumps(info)}")
+    info["launches_by"] = dict(launches_by)
+    return info
+
+
+def phase_cluster_main_path(device: torch.device, num_nodes: int = NUM_NODES,
+                            epochs: int = SUBGRAPH_EPOCHS):
+    """ClusterGCN: GCN (hidden 128, dropout 0.5) through
+    ``experiment(wrapper="cluster")`` with the wrapper's defaults, for 1
+    epoch and then for ``epochs`` (:func:`_subgraph_main`)."""
+    return _subgraph_main(
+        "cluster-main", device, num_nodes,
+        [("gcn", "gcn", "cluster", {"hidden_size": HIDDEN}, (1, epochs))])
+
+
+def phase_saint_main_path(device: torch.device, num_nodes: int = NUM_NODES,
+                          epochs: int = SUBGRAPH_EPOCHS, saint_kw=SAINT_KW):
+    """GraphSAINT through ``experiment(model="graphsaint")`` and its
+    default wrapper (1-1-0 at hidden 128, dropout 0.1, ``saint_kw``) for 1
+    epoch and then for ``epochs``, and GCN under ``wrapper="graphsaint"``
+    for 1 epoch (:func:`_subgraph_main`)."""
+    return _subgraph_main(
+        "saint-main", device, num_nodes,
+        [("graphsaint", "graphsaint", None, SAINT_MODEL_KW, (1, epochs)),
+         ("gcn", "gcn", "graphsaint", {"hidden_size": HIDDEN}, (1,))],
+        saint_kw)
+
+
+def _k1_entry(name: str, ex, d: str, feat: int, gen, device, iters: int):
+    """One measurement entry of K1 over one direction of a structure at
+    width ``feat``: checked as :func:`_host_k1_check` does, timed with CUDA
+    events (``ms``) and with the host held out (``device_ms``), beside its
+    plain version, its bound and ``torch.sparse.mm``."""
+    ptr, col, w = (ex[f"spmm_{d}_{k}"] for k in ("ptr", "col", "w"))
+    sched = stored_schedule(ex, d)
+    n, nnz = ptr.numel() - 1, col.numel()
+    x = torch.randn(n, feat, generator=gen, device=device)
+    err = _host_k1_check(name, ex, d, (feat,), gen, device)
+    if not err <= 1.0:
+        raise AssertionError(f"{name}: K1 disagrees with its plain version "
+                             f"({err:.3g} x tolerance)")
+
+    def run():
+        return sk.spmm_csr(ptr, col, w, x, schedule=sched)
+
+    out = run()
+    ref = sk.spmm_csr_reference(ptr, col, w, x)
+    lib_a = torch.sparse_csr_tensor(ptr, col, w, size=(n, n),
+                                    check_invariants=False)
+    x_rows = int(torch.unique(col).numel())
+    b_ms, b_by = bound_ms(n, nnz, feat, x_rows)
+    ms = time_ms(run, device, iters)
+    device_ms, host_us = time_device_ms(run, device, iters)
+    return {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+            "replaces": SPMM_REPLACES, "launches": None,
+            "case": ["spmm_csr", "csr" if d == "fw" else "csc", feat],
+            "max_abs_err": float((out - ref).abs().max()),
+            "err_over_tol": err, "ms": ms, "device_ms": device_ms,
+            "host_us_per_call": host_us,
+            "plain_ms": time_ms(
+                lambda: sk.spmm_csr_reference(ptr, col, w, x), device,
+                max(iters // 4, 1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, x), device,
+                                  iters),
+            "rows": n, "x_rows": x_rows, "nnz": nnz,
+            "share_of_bound": b_ms / device_ms}
+
+
+def _epoch_profile(wrapper, graph, device):
+    """``torch.profiler``'s view (:func:`profile_window`) of one epoch of
+    the wrapper's train steps (its prefetch worker included), after one
+    epoch of warm-up; the model on ``device``, Adam at 1e-2."""
+    wrapper.model.to(device)
+    opt = torch.optim.Adam(wrapper.model.parameters(), lr=1e-2)
+    gen = torch.Generator(device=device).manual_seed(1)
+    bench.sampled_steps(wrapper, opt, wrapper.train_batches(graph), gen)
+    ran = []
+    prof = profile_window(lambda: ran.extend(bench.sampled_steps(
+        wrapper, opt, wrapper.train_batches(graph), gen)), device)
+    if prof["busy_ms"] is not None:
+        prof["busy_ms_per_step"] = prof["busy_ms"] / len(ran)
+        prof["window_ms_per_step"] = prof["window_ms"] / len(ran)
+    prof["steps"] = len(ran)
+    return prof
+
+
+def _host_ms(wrapper):
+    """The prefetch worker's own time a batch, subgraph and structure, in
+    ms: the mean over the batches in ``wrapper.host_ms`` (a cluster epoch
+    builds all its subgraphs before its first batch, so its first batch
+    holds the epoch's subgraph work) and the largest."""
+    sub, structure = zip(*wrapper.host_ms)
+    return {"batches": len(sub), "subgraph_ms": float(np.mean(sub)),
+            "subgraph_ms_max": float(np.max(sub)),
+            "structure_ms": float(np.mean(structure)),
+            "structure_ms_max": float(np.max(structure))}
+
+
+def phase_cluster_saint_check(device: torch.device,
+                              num_nodes: int = NUM_NODES, saint_kw=SAINT_KW,
+                              iters: int = 20):
+    """One full-size cluster batch and one full-size GraphSAINT batch, each
+    drawn and prepared by its wrapper's prefetch worker and copied to
+    ``device``: K1 over both directions of each batch's structure at every
+    width the two paths run (CSR F=100, 128, 47 and 256, CSC F=128, 47 and
+    256) against its plain version, a second call equal bit for bit
+    (:func:`_host_k1_check`); GCN and GraphSAINT with the same weights,
+    dropout off, over each batch on ``device`` and on the CPU: logits
+    within rtol 1e-4 / atol 1e-4. Then the times: ``bfs_partition`` at this
+    size, ``torch.profiler``'s busy time over one epoch of each wrapper
+    (:func:`_epoch_profile`), the worker's own time a batch (subgraph and
+    structure, :func:`_host_ms`) over that epoch and its warm-up, and K1
+    at F=256 timed over the SAINT
+    batch (CSR and CSC) and over the full graph (CSR, the evaluation's):
+    three measurement entries, returned with the rest."""
+    g = _host_graph(num_nodes, device)
+    prepared = sym_norm(add_self_loops(g))
+    _sync(device)
+    t0 = time.perf_counter()
+    bfs_partition(prepared, CLUSTER_KW["n_clusters"], seed=0)
+    bfs_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(4)
+    models = {
+        "gcn": build_model("gcn", in_features=FEAT_DIM,
+                           out_features=NUM_CLASSES, hidden_size=HIDDEN,
+                           dropout=0.0),
+        "graphsaint": build_model("graphsaint", in_features=FEAT_DIM,
+                                  out_features=NUM_CLASSES, dropout=0.0,
+                                  **SAINT_MODEL_KW)}
+    for net in models.values():
+        net.reset_parameters(torch.Generator().manual_seed(0))
+    wrappers = {
+        "cluster": ClusterNodeClfWrapper(copy.deepcopy(models["gcn"]),
+                                         **CLUSTER_KW),
+        "saint": GraphSAINTWrapper(copy.deepcopy(models["graphsaint"]),
+                                   **saint_kw)}
+    info = {"bfs_partition_s": bfs_s, "nodes": num_nodes,
+            "edges": prepared.num_edges}
+    entries = []
+    widths = {"fw": (FEAT_DIM, HIDDEN, NUM_CLASSES, SAINT_WIDTH),
+              "bw": (HIDDEN, NUM_CLASSES, SAINT_WIDTH)}
+    for label, w in wrappers.items():
+        t0 = time.perf_counter()
+        graph = w.prepare_graph(g)
+        _sync(device)
+        prepare_s = time.perf_counter() - t0
+        it = iter(w.train_batches(graph))
+        batch = next(it)
+        it.close()
+        ex = batch.extras
+        rec = {"prepare_graph_s": prepare_s, "nodes": batch.num_nodes,
+               "n_pad": batch.n_pad, "edges": batch.num_edges,
+               "e_pad": batch.e_pad,
+               "cross_rows": {d: stored_schedule(ex, d).cross.shape[0]
+                              for d in ("fw", "bw")},
+               "k1": max(_host_k1_check(f"{label} batch", ex, d, widths[d],
+                                        gen, device) for d in widths)}
+        if not rec["k1"] <= 1.0:
+            raise AssertionError(f"{label} batch: K1 disagrees with its "
+                                 f"plain version: {rec}")
+        cpu_batch = batch.to("cpu")
+        diffs = {}
+        for name, net in models.items():
+            with torch.no_grad():
+                ref = net(cpu_batch, cpu_batch.x)
+                out = copy.deepcopy(net).to(device)(batch, batch.x).cpu()
+            diffs[name] = float((out - ref).abs().max())
+            if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(
+                    f"{label} batch, {name}: {device.type} logits differ "
+                    f"from CPU logits by {diffs[name]}")
+        rec["max_abs_diff"] = diffs
+        w.host_ms.clear()
+        rec["profile"] = _epoch_profile(w, graph, device)
+        rec["host_ms"] = _host_ms(w)
+        if label == "saint":
+            for d in ("fw", "bw"):
+                entries.append(_k1_entry(
+                    f"spmm_csr[{'csr' if d == 'fw' else 'csc'},"
+                    f"F={SAINT_WIDTH}] saint batch", ex, d, SAINT_WIDTH, gen,
+                    device, iters))
+            # the CPU rehearsal's prepared graph has no structure
+            full = graph if device.type == "cuda" else prepare_spmm(graph)
+            entries.append(_k1_entry(
+                f"spmm_csr[csr,F={SAINT_WIDTH}] full graph", full.extras,
+                "fw", SAINT_WIDTH, gen, device, iters))
+        info[label] = rec
+        del graph, batch, cpu_batch, it
+    for e in entries:
+        print(f"[kernel] {json.dumps(e)}")
+    print(f"[cluster-saint-check] {json.dumps(info)}")
+    info["entries"] = entries
+    return info
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print how long it took."""
     t0 = time.perf_counter()
@@ -2971,10 +3265,21 @@ def main(argv=None) -> int:
     host_info = timed(phase_host_sampled_main_path, device)
     timed(phase_host_sampled_check, device)
     host_bench = timed(phase_host_sampled_bench, device)
+    # cluster and GraphSAINT mini-batch training
+    cluster_info = timed(phase_cluster_main_path, device)
+    saint_info = timed(phase_saint_main_path, device)
+    check_info = timed(phase_cluster_saint_check, device)
+    for e in check_info["entries"]:
+        kernel, *case = e["case"]
+        e["launches"] = saint_info["launches_by"].get(kernel, {}).get(
+            tuple(case), 0)
+    entries += check_info["entries"]
     for e in entries:
         kernel, *case = e.pop("case", [None])
-        e["launches_host_sampled"] = host_info["launches_by"].get(
-            kernel, {}).get(tuple(case), 0)
+        for key, run in (("launches_host_sampled", host_info),
+                         ("launches_cluster", cluster_info),
+                         ("launches_saint", saint_info)):
+            e[key] = run["launches_by"].get(kernel, {}).get(tuple(case), 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
           f"eval_ms={main_info['eval_ms']:.3f}; GAT main path "
@@ -3003,6 +3308,13 @@ def main(argv=None) -> int:
           + "; host-sampled bench step_ms "
           + ", ".join(f"sage@{r['nodes']} {r['step_ms']:.3f}"
                       for r in host_bench)
+          + "; cluster / GraphSAINT train_step_ms (eval_ms) "
+          + ", ".join(f"{tag} {k} {v['train_step_ms']:.3f} "
+                      f"({v['eval_ms']:.3f})"
+                      for tag, run in (("cluster", cluster_info),
+                                       ("saint", saint_info))
+                      for k, v in run.items() if k != "launches_by")
+          + f"; bfs_partition {check_info['bfs_partition_s']:.2f} s"
           + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))

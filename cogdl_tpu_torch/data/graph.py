@@ -12,7 +12,8 @@ the two packages compare one to one):
       - pad edges point at the *sink node* ``n_pad - 1`` (a pad node whenever
         pad edges exist) with ``edge_weight == 0``.
   * Normalisation folds into ``edge_weight`` and tags ``meta["norm"]`` so a
-    second call is free.
+    second call is free. A normalisation that changes the weights drops the
+    kernel structure (``spmm_*`` extras), which holds the old ones.
 
 Construction and structural rebuilds run on the host with numpy; the result
 lands on the device of the graph it was built from. Weight transforms
@@ -310,7 +311,7 @@ def sym_norm(g: Graph, add_self_loops_first: bool = False) -> Graph:
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)),
                            torch.zeros_like(deg))
     w = g.edge_weight * inv_sqrt[g.row] * inv_sqrt[g.col]
-    return g.replace(edge_weight=w).with_meta(norm="sym")
+    return _reweighted(g, w, "sym")
 
 
 def row_norm(g: Graph) -> Graph:
@@ -319,7 +320,7 @@ def row_norm(g: Graph) -> Graph:
         return g
     deg = g.in_degrees(weighted=True)
     inv = torch.where(deg > 0, 1.0 / deg.clamp_min(1e-12), torch.zeros_like(deg))
-    return g.replace(edge_weight=g.edge_weight * inv[g.row]).with_meta(norm="row")
+    return _reweighted(g, g.edge_weight * inv[g.row], "row")
 
 
 def col_norm(g: Graph) -> Graph:
@@ -328,7 +329,23 @@ def col_norm(g: Graph) -> Graph:
         return g
     deg = g.out_degrees(weighted=True)
     inv = torch.where(deg > 0, 1.0 / deg.clamp_min(1e-12), torch.zeros_like(deg))
-    return g.replace(edge_weight=g.edge_weight * inv[g.col]).with_meta(norm="col")
+    return _reweighted(g, g.edge_weight * inv[g.col], "col")
+
+
+def _reweighted(g: Graph, w: torch.Tensor, norm: str) -> Graph:
+    """``g`` with the weights ``w``, tagged ``meta["norm"] = norm``. A kernel
+    structure in extras (``spmm_*``) holds a copy of the old weights and is
+    dropped, so that a CUDA ``spmm`` raises instead of reading them."""
+    return _without_structure(g).replace(edge_weight=w).with_meta(norm=norm)
+
+
+def _without_structure(g: Graph) -> Graph:
+    """``g`` without the kernel structures in its extras (``spmm_*``);
+    node-level extras are kept."""
+    if not g.extras:
+        return g
+    extras = {k: v for k, v in g.extras.items() if not k.startswith("spmm_")}
+    return g.replace(extras=extras or None)
 
 
 # ---------------------------------------------------------------------------
@@ -400,17 +417,13 @@ def _rebuild_structure(g: Graph, row, col, w, ea=None, et=None) -> Graph:
     index the old edge order); node-level extras are kept."""
     ng = from_coo(np.stack([row, col]), num_nodes=g.num_nodes, edge_weight=w,
                   edge_attr=ea, edge_type=et, bucket=True).to(g.device)
-    extras = g.extras
-    if extras:
-        extras = {k: v for k, v in extras.items()
-                  if not k.startswith("spmm_")} or None
     return ng.replace(
         x=_repad_nodes(g.x, ng.n_pad),
         y=_repad_nodes(g.y, ng.n_pad),
         train_mask=_repad_nodes(g.train_mask, ng.n_pad),
         val_mask=_repad_nodes(g.val_mask, ng.n_pad),
         test_mask=_repad_nodes(g.test_mask, ng.n_pad),
-        extras=extras,
+        extras=_without_structure(g).extras,
         meta=tuple((k, v) for k, v in g.meta if k != "norm"),
     )
 

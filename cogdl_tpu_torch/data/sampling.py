@@ -1,6 +1,8 @@
-"""Host-side neighbor sampling — the port of the host neighbor path of
-``cogdl_tpu/data/sampling.py`` (``graph_csr``, ``sample_adj``,
-``NeighborSampler``, ``Prefetcher``).
+"""Host-side samplers — the port of ``cogdl_tpu/data/sampling.py``: the
+neighbor path (``graph_csr``, ``sample_adj``, ``NeighborSampler``,
+``Prefetcher``) and the cluster and GraphSAINT samplers (``bfs_partition``,
+``bfs_partition_cached``, ``ClusterLoader``, ``saint_node_subgraph``,
+``saint_walk_subgraph``, ``random_partition_batches``).
 
 The sampler runs on the host with numpy and the port's C++ library
 (``cogdl_tpu_torch.native``) and emits statically shaped batches: per-hop
@@ -21,8 +23,11 @@ samplers of the same module.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import queue
 import threading
+import weakref
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,7 +36,10 @@ import torch
 from .. import native
 from .graph import Graph, _bucket, _np, from_coo
 
-__all__ = ["graph_csr", "sample_adj", "NeighborSampler", "Prefetcher"]
+__all__ = ["graph_csr", "sample_adj", "NeighborSampler", "Prefetcher",
+           "bfs_partition", "bfs_partition_cached", "ClusterLoader",
+           "saint_node_subgraph", "saint_walk_subgraph",
+           "random_partition_batches"]
 
 BACKENDS = ("native", "numpy")
 
@@ -327,3 +335,262 @@ class Prefetcher:
         finally:
             stop.set()
             t.join()
+
+
+# ---------------------------------------------------------------------------
+# The cluster (ClusterGCN) and GraphSAINT samplers
+# ---------------------------------------------------------------------------
+
+def bfs_partition(graph: Graph, n_parts: int, seed: int = 0,
+                  weights=None, node_slack: float = 1.5) -> np.ndarray:
+    """Balanced BFS-grown partition, ``int64[num_nodes]`` part ids: a greedy
+    multi-source BFS with a budget cap per part, the JAX package's stand-in
+    for METIS (``cogdl_tpu/data/sampling.py:247``), ported as it is (a
+    Python loop over the edges of each frontier until its part is full).
+
+    ``weights=None`` balances node counts. ``weights="degree"`` balances
+    each part's sum of in-degree + 1 instead, with a second cap of
+    ``node_slack`` × the balanced share on its node count; an explicit
+    per-node weight array is balanced the same way."""
+    N = graph.num_nodes
+    indptr, indices, _ = graph_csr(graph)
+    rng = np.random.default_rng(seed)
+    if weights is None:
+        wt = np.ones(N, np.int64)
+        node_cap = None
+    else:
+        if isinstance(weights, str):
+            if weights != "degree":
+                raise ValueError(f"unknown weights {weights!r}")
+            wt = (indptr[1:] - indptr[:-1]).astype(np.int64) + 1
+        else:
+            wt = np.asarray(weights, np.int64)
+        node_cap = int(np.ceil(N / n_parts * node_slack))
+    cap = int(np.ceil(wt.sum() / n_parts))
+    part = np.full(N, -1, np.int64)
+    sizes = np.zeros(n_parts, np.int64)      # weight budget used
+    counts = np.zeros(n_parts, np.int64)     # node counts
+
+    def fits(p):
+        return sizes[p] < cap and (node_cap is None or counts[p] < node_cap)
+
+    seeds = rng.choice(N, size=n_parts, replace=N < n_parts)
+    frontiers = [[s] for s in seeds]
+    for p, s in enumerate(seeds):
+        if part[s] == -1:
+            part[s] = p
+            sizes[p] += wt[s]
+            counts[p] += 1
+    active = True
+    while active:
+        active = False
+        for p in range(n_parts):
+            if not fits(p) or not frontiers[p]:
+                continue
+            nxt = []
+            for u in frontiers[p]:
+                for v in indices[indptr[u]: indptr[u + 1]]:
+                    if part[v] == -1 and fits(p):
+                        part[v] = p
+                        sizes[p] += wt[v]
+                        counts[p] += 1
+                        nxt.append(v)
+            frontiers[p] = nxt
+            if nxt:
+                active = True
+    # unassigned (disconnected, or every reachable part capped) → the
+    # lightest part under the node cap
+    for v in np.nonzero(part == -1)[0]:
+        order = np.argsort(sizes)
+        p = next((int(q) for q in order
+                  if node_cap is None or counts[q] < node_cap), int(order[0]))
+        part[v] = p
+        sizes[p] += wt[v]
+        counts[p] += 1
+    return part
+
+
+_DIGEST_CACHE: dict = {}
+
+
+def _structure_digest(row, col, E: int) -> str:
+    """Fingerprint of the first ``E`` entries of ``row`` and ``col`` (int32,
+    as both packages store them), memoized per (row, col) object identity:
+    on a card the hash copies both edge arrays to the host, which a second
+    lookup on the same Graph must not pay again. Weak references guard
+    against ``id()`` reuse after collection."""
+    key = (id(row), id(col), E)
+    hit = _DIGEST_CACHE.get(key)
+    if hit is not None:
+        ref_r, ref_c, digest = hit
+        if ref_r() is row and ref_c() is col:
+            return digest
+    h = hashlib.blake2b(digest_size=8)
+    h.update(np.ascontiguousarray(_np(row[:E])))
+    h.update(np.ascontiguousarray(_np(col[:E])))
+    digest = h.hexdigest()
+    try:
+        _DIGEST_CACHE[key] = (weakref.ref(row), weakref.ref(col), digest)
+        if len(_DIGEST_CACHE) > 64:
+            _DIGEST_CACHE.pop(next(iter(_DIGEST_CACHE)))
+    except TypeError:   # an array type without weak references: no memo
+        pass
+    return digest
+
+
+def bfs_partition_cached(graph: Graph, n_parts: int, seed: int = 0,
+                         weights=None, cache_dir=None) -> np.ndarray:
+    """:func:`bfs_partition` with a cache on disk under ``cache_dir`` (None:
+    no cache), one ``.npy`` file per graph and parameters. The file name
+    holds the graph's name, node and edge counts, the digest of its edge
+    structure and the parameters (a custom weight array by a digest of its
+    values): the JAX package forms the same name for the same graph."""
+    if cache_dir is None:
+        return bfs_partition(graph, n_parts, seed, weights=weights)
+    name = graph.meta_get("name", "graph")
+    E = graph.num_edges
+    gdigest = _structure_digest(graph.row, graph.col, E)
+    if isinstance(weights, (str, type(None))):
+        wtag = weights
+    else:
+        wh = hashlib.blake2b(np.ascontiguousarray(np.asarray(weights)),
+                             digest_size=6)
+        wtag = f"custom{wh.hexdigest()}"
+    key = (f"{name}_N{graph.num_nodes}_E{E}_g{gdigest}"
+           f"_p{n_parts}_s{seed}_w{wtag}.npy")
+    path = os.path.join(cache_dir, key)
+    if os.path.exists(path):
+        part = np.load(path)
+        if part.shape[0] == graph.num_nodes:
+            return part
+    part = bfs_partition(graph, n_parts, seed, weights=weights)
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, part)
+    os.replace(tmp, path)
+    return part
+
+
+class ClusterLoader:
+    """ClusterGCN loader: each epoch, a random order of the partition's
+    parts cut into groups of ``batch_size`` parts, each group's induced
+    subgraph one batch Graph on the CPU (reference
+    ``cogdl_tpu/data/sampling.py:387``).
+
+    Every batch has ``n_pad = _bucket(sum of the batch_size largest part
+    sizes + 1)`` rows; ``e_pad`` is the bucket of the epoch's largest edge
+    count, and grows when a later epoch has a larger one. A batch carries
+    the group's edges with the graph's weights as they are, its ``x``,
+    ``y`` and ``train_mask`` rows, and ``num_classes`` as its only meta (so
+    a model normalises it again, as in the JAX package). The loader's
+    generator draws each epoch's order; the partition gets a generator of
+    its own from the same ``seed``. ``cache_dir`` as
+    :func:`bfs_partition_cached`."""
+
+    def __init__(self, graph: Graph, n_clusters: int = 20,
+                 batch_size: int = 5, seed: int = 0, cache_dir=None):
+        self.graph = graph
+        self.n_clusters = n_clusters
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+        self.part = bfs_partition_cached(graph, n_clusters, seed,
+                                         cache_dir=cache_dir)
+        counts = np.bincount(self.part, minlength=n_clusters)
+        self.n_pad = _bucket(int(np.sort(counts)[-batch_size:].sum()) + 1)
+        self._host_copies(graph)
+
+        self.e_pad = None   # set by the first epoch's scan
+
+    def _host_copies(self, graph: Graph) -> None:
+        """The graph's edges and node rows on the host, copied once."""
+        E = graph.num_edges
+        self._row = _np(graph.row[:E])
+        self._col = _np(graph.col[:E])
+        self._w = _np(graph.edge_weight[:E])
+        self._x = None if graph.x is None else _np(graph.x)
+        self._y = None if graph.y is None else _np(graph.y)
+        self._train_mask = (None if graph.train_mask is None
+                            else _np(graph.train_mask))
+
+    def epoch(self) -> Iterator[Graph]:
+        order = self.rng.permutation(self.n_clusters)
+        groups = [order[i: i + self.batch_size]
+                  for i in range(0, self.n_clusters, self.batch_size)]
+        batches = [self._induced(np.nonzero(np.isin(self.part, grp))[0])
+                   for grp in groups]
+        # one e_pad for the epoch
+        e_max = max(b[0].shape[1] if b[0].shape[1] else 1 for b in batches)
+        if self.e_pad is None or e_max > self.e_pad:
+            self.e_pad = _bucket(e_max)
+        for ei, nodes, w in batches:
+            g = from_coo(ei, num_nodes=nodes.shape[0], edge_weight=w,
+                         n_pad=self.n_pad, e_pad=self.e_pad,
+                         meta={"num_classes": self.graph.num_classes})
+
+            def pad_nodes(a, fill=0):
+                if a is None:
+                    return None
+                out = np.full((self.n_pad,) + a.shape[1:], fill, a.dtype)
+                out[: nodes.shape[0]] = a[nodes]
+                return torch.from_numpy(out)
+
+            yield g.replace(x=pad_nodes(self._x), y=pad_nodes(self._y),
+                            train_mask=pad_nodes(self._train_mask, False))
+
+    def _induced(self, nodes: np.ndarray):
+        """``(edge_index, nodes, weights)`` of the subgraph induced by the
+        sorted global ids ``nodes``, relabelled to ``0..len(nodes)``."""
+        sel = np.zeros(self.graph.num_nodes, bool)
+        sel[nodes] = True
+        emask = sel[self._row] & sel[self._col]
+        r, c, w = self._row[emask], self._col[emask], self._w[emask]
+        relabel = np.full(self.graph.num_nodes, -1, np.int64)
+        relabel[nodes] = np.arange(nodes.shape[0])
+        return np.stack([relabel[r], relabel[c]]), nodes, w
+
+
+def saint_node_subgraph(graph: Graph, size: int, rng) -> np.ndarray:
+    """GraphSAINT node sampler: ``size`` distinct nodes, uniformly."""
+    return rng.choice(graph.num_nodes, size=size, replace=False)
+
+
+def saint_walk_subgraph(graph: Graph, roots: int, length: int, rng,
+                        csr=None) -> np.ndarray:
+    """GraphSAINT random-walk sampler: the sorted distinct nodes touched by
+    ``roots`` walks of ``length`` steps from uniform roots (a node without
+    an edge stays put). ``csr``: the graph's :func:`graph_csr`, when the
+    caller keeps it (it is built from the graph otherwise, as the JAX
+    package builds it at every call); the draws are the same."""
+    indptr, indices, _ = graph_csr(graph) if csr is None else csr
+    starts = rng.choice(graph.num_nodes, size=roots)
+    nodes = [starts]
+    cur = starts
+    deg = np.diff(indptr)
+    for _ in range(length):
+        d = deg[cur]
+        off = (rng.random(cur.shape[0]) * np.maximum(d, 1)).astype(np.int64)
+        nxt = indices[indptr[cur] + np.minimum(off, np.maximum(d - 1, 0))]
+        cur = np.where(d > 0, nxt, cur)
+        nodes.append(cur)
+    return np.unique(np.concatenate(nodes))
+
+
+def random_partition_batches(graph: Graph, n_parts: int, seed: int = 0
+                             ) -> Iterator[Graph]:
+    """One epoch of induced subgraphs over a uniformly random node partition
+    into ``n_parts`` parts, one part a batch (reference
+    ``cogdl_tpu/data/sampling.py:473``)."""
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, n_parts, graph.num_nodes)
+    loader = ClusterLoader.__new__(ClusterLoader)
+    loader.graph = graph
+    loader.part = part
+    loader.n_clusters = n_parts
+    loader.batch_size = 1
+    loader.rng = rng
+    counts = np.bincount(part, minlength=n_parts)
+    loader.n_pad = _bucket(int(counts.max()) + 1)
+    loader.e_pad = None
+    loader._host_copies(graph)
+    return loader.epoch()

@@ -1,8 +1,9 @@
 """Model registry — the port of ``cogdl_tpu/models/__init__.py`` — and the
 weight bridge from the JAX package's flax parameters.
 
-``gcn``, ``gat`` and ``graphsage`` (alias ``sage``) are ported so far; every
-other name of the JAX registry waits in ROADMAP.md §1 ("Modules to port").
+``gcn``, ``gat``, ``graphsage`` (alias ``sage``) and ``graphsaint`` are
+ported so far; every other name of the JAX registry waits in ROADMAP.md §1
+("Modules to port").
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "gat": "cogdl_tpu_torch.models.nn.gat.GAT",
     "graphsage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
     "sage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
+    "graphsaint": "cogdl_tpu_torch.models.nn.graphsaint.GraphSAINT",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 

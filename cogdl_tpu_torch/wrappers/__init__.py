@@ -1,8 +1,8 @@
 """Task wrappers — the port of ``cogdl_tpu/wrappers/__init__.py``. A wrapper
 owns the task-specific pieces (data preparation, loss, evaluation); the
 Trainer stays task-agnostic. Full-batch node classification and its
-neighbor-sampled forms (host and device sampler) are ported so far; the
-cluster and GraphSAINT wrappers (``cluster``, ``graphsaint``) and the rest
+sampled forms are ported so far: neighbor sampling on the host and on the
+device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); the rest
 wait in ROADMAP.md §1."""
 
 from __future__ import annotations
@@ -19,13 +19,20 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "neighbor_sampling_device":
         "cogdl_tpu_torch.wrappers.sampled_node_classification."
         "DeviceSampledNodeClfWrapper",
+    "cluster":
+        "cogdl_tpu_torch.wrappers.sampled_node_classification."
+        "ClusterNodeClfWrapper",
+    "graphsaint":
+        "cogdl_tpu_torch.wrappers.sampled_node_classification."
+        "GraphSAINTWrapper",
 }
 
 # model name → default wrapper
 DEFAULT_WRAPPER = {"gcn": "node_classification",
                    "gat": "node_classification",
                    "graphsage": "node_classification",
-                   "sage": "node_classification"}
+                   "sage": "node_classification",
+                   "graphsaint": "graphsaint"}
 
 
 def fetch_wrapper(name: str):

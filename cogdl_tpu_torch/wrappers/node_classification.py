@@ -18,6 +18,18 @@ from ..utils.evaluator import (
 )
 
 
+def apply_adj_norm(model, graph: Graph) -> Graph:
+    """``graph`` under ``model``'s adjacency normalisation (its ``adj_norm``,
+    ``"sym"`` or ``"row"``), as the model's forward applies it; unchanged
+    for a model without one and for a graph already tagged with it."""
+    norm = getattr(model, "adj_norm", None)
+    if norm == "sym":
+        return sym_norm(graph)
+    if norm == "row":
+        return row_norm(graph)
+    return graph
+
+
 class NodeClfWrapper:
     eval_metric = "val_acc"
     eval_mode = "max"
@@ -28,17 +40,22 @@ class NodeClfWrapper:
 
     # -- data ---------------------------------------------------------------
     def prepare_graph(self, graph: Graph) -> Graph:
-        """Add self loops, apply the model's adjacency normalisation once, and
-        on the card build the kernels' structure (K1 and K3)."""
-        graph = add_self_loops(graph)
-        norm = getattr(self.model, "adj_norm", None)
-        if norm == "sym":
-            graph = sym_norm(graph)
-        elif norm == "row":
-            graph = row_norm(graph)
+        """:meth:`normalise`, then on the card the kernels' structure (K1 and
+        K3), built from the final weights."""
+        return self.with_structure(self.normalise(graph))
+
+    @staticmethod
+    def with_structure(graph: Graph) -> Graph:
+        """On the card, ``graph`` with the kernels' structure from its
+        current weights (``prepare_spmm``); elsewhere ``graph``."""
         if graph.device.type == "cuda":
             graph = prepare_spmm(graph)
         return graph
+
+    def normalise(self, graph: Graph) -> Graph:
+        """Add self loops and apply the model's adjacency normalisation
+        once."""
+        return apply_adj_norm(self.model, add_self_loops(graph))
 
     def train_batches(self, graph: Graph):
         return [graph]

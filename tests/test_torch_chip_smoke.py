@@ -863,6 +863,98 @@ def test_host_sampled_bench_phase_rehearsal():
     assert records[1]["edges"] == 3000 * 10 + 3000
 
 
+# the subgraph phases at a tiny size: a powerlaw graph of 2000 nodes,
+# GraphSAINT's walks from 100 roots and its estimator over 8 draws
+SUBGRAPH_TINY_NODES = 2000
+SAINT_TINY = dict(cs.SAINT_KW, walk_roots=100, est_samples=8)
+
+
+def test_subgraph_launches_expected_per_step_and_evaluation():
+    """ClusterGCN with GCN: 4 K1 a step (CSR and CSC at F=128 and 47), 2
+    an evaluation; GraphSAINT 1-1-0: CSR F=100, CSR F=256 and CSC F=256 a
+    step, the two CSR an evaluation; a CPU run none."""
+    assert cs._subgraph_expected("gcn", 12, 4, True) == {"spmm_csr": {
+        ("csr", 128): 16, ("csr", 47): 16, ("csc", 128): 12,
+        ("csc", 47): 12}}
+    assert cs._subgraph_expected("graphsaint", 24, 4, True) == {
+        "spmm_csr": {("csr", 100): 28, ("csr", 256): 28,
+                     ("csc", 256): 24}}
+    assert cs._subgraph_expected("graphsaint", 24, 4, False) == {}
+
+
+def test_cluster_main_path_phase_rehearsal():
+    info = cs.phase_cluster_main_path(CPU, num_nodes=SUBGRAPH_TINY_NODES)
+    assert info.pop("launches_by") == {}
+    run = info["gcn"]
+    assert run["launches"] == {} and run["steps_per_epoch"] == 4
+    assert run["epochs"] == [1, cs.SUBGRAPH_EPOCHS]
+    assert run["losses"][1] < run["losses"][0]
+    assert run["train_step_ms"] > 0 and run["eval_ms"] > 0
+
+
+def test_saint_main_path_phase_rehearsal():
+    info = cs.phase_saint_main_path(CPU, num_nodes=SUBGRAPH_TINY_NODES,
+                                    saint_kw=SAINT_TINY)
+    assert info.pop("launches_by") == {}
+    assert list(info) == ["graphsaint", "gcn"]
+    assert info["graphsaint"]["losses"][1] < info["graphsaint"]["losses"][0]
+    assert info["gcn"]["epochs"] == [1]
+    for run in info.values():
+        assert run["launches"] == {} and run["steps_per_epoch"] == 8
+
+
+def test_subgraph_main_path_catches_a_launch_count_off(monkeypatch):
+    from cogdl_tpu_torch.wrappers import sampled_node_classification as snc
+
+    real = snc.ClusterNodeClfWrapper.loss
+
+    def loss_and_count(self, *a, **kw):
+        cs.sk.spmm_csr.launches += 1
+        cs.sk.spmm_csr.launches_by[("csr", 128)] += 1
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(snc.ClusterNodeClfWrapper, "loss", loss_and_count)
+    with pytest.raises(AssertionError, match="cluster-main gcn"):
+        cs.phase_cluster_main_path(CPU, num_nodes=SUBGRAPH_TINY_NODES)
+    cs.sk.reset_launch_counts()
+
+
+def test_cluster_saint_check_phase_rehearsal():
+    info = cs.phase_cluster_saint_check(CPU, num_nodes=SUBGRAPH_TINY_NODES,
+                                        saint_kw=SAINT_TINY, iters=1)
+    assert info["bfs_partition_s"] > 0
+    for label in ("cluster", "saint"):
+        rec = info[label]
+        assert rec["k1"] == 0.0                   # the plain version twice
+        assert set(rec["max_abs_diff"].values()) == {0.0}
+        assert rec["edges"] > 0 and rec["nodes"] < SUBGRAPH_TINY_NODES
+        assert rec["host_ms"]["batches"] >= 4
+        assert rec["host_ms"]["subgraph_ms"] > 0
+        assert rec["host_ms"]["structure_ms"] > 0
+        # no card: the profiler window runs nothing
+        assert rec["profile"]["busy_ms"] is None
+    entries = info["entries"]
+    assert [e["name"] for e in entries] == [
+        "spmm_csr[csr,F=256] saint batch", "spmm_csr[csc,F=256] saint batch",
+        "spmm_csr[csr,F=256] full graph"]
+    for e in entries:
+        assert KERNEL_KEYS <= set(e) and e["err_over_tol"] == 0.0
+        assert e["case"][2] == 256 and e["bound_by"] == "bytes"
+    assert entries[2]["rows"] > entries[0]["rows"]
+
+
+def test_cluster_saint_check_catches_a_kernel_that_disagrees(monkeypatch):
+    real = cs.sk.spmm_csr
+
+    def off(ptr, col, w, x, *a, **kw):
+        return real(ptr, col, w, x, *a, **kw) + 1e-3
+
+    monkeypatch.setattr(cs.sk, "spmm_csr", off)
+    with pytest.raises(AssertionError, match="cluster batch"):
+        cs.phase_cluster_saint_check(CPU, num_nodes=SUBGRAPH_TINY_NODES,
+                                     saint_kw=SAINT_TINY, iters=1)
+
+
 def test_busy_time_counts_overlaps_once():
     assert cs.busy_us([(10, 12), (0, 5), (3, 8), (11, 11)]) == 10
     assert cs.busy_us([]) == 0

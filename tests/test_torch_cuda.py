@@ -1215,3 +1215,90 @@ def test_host_sampled_blocks_run_k1_k3_like_their_plain_versions(dev):
         dev, num_nodes=5000, batch_size=64, fanouts=(5, 3), timing_batches=2)
     assert max(info["max_abs_diff"].values()) < 1e-4
     assert all(max(r["k1"], r["k3"]) <= 1.0 for r in info["blocks"].values())
+
+
+# -- cluster and GraphSAINT mini-batch training --------------------------------
+
+from cogdl_tpu_torch.data.graph import row_norm  # noqa: E402
+from cogdl_tpu_torch.wrappers.sampled_node_classification import (  # noqa: E402
+    ClusterNodeClfWrapper,
+    GraphSAINTWrapper,
+)
+
+
+def _subgraph_wrapper(dev, name):
+    """A small powerlaw graph on the card and a cluster wrapper over GCN or
+    a GraphSAINT wrapper over GraphSAINT 1-1-0, prepared (seed 1)."""
+    from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph
+
+    g = powerlaw_graph(3000, avg_degree=8, feat_dim=16, num_classes=5,
+                       device_features=True, device=dev)
+    if name == "cluster":
+        net = build_model("gcn", in_features=16, out_features=5,
+                          hidden_size=8)
+        w = ClusterNodeClfWrapper(net, n_clusters=8, cluster_batch=2, seed=1)
+    else:
+        net = build_model("graphsaint", in_features=16, out_features=5,
+                          hidden_size=8)
+        w = GraphSAINTWrapper(net, walk_roots=200, batches_per_epoch=4,
+                              est_samples=6, seed=1)
+    return w.prepare_graph(g), net, w
+
+
+@pytest.mark.parametrize("name,per_step", [
+    ("cluster", {("csr", 8): 1, ("csr", 5): 1, ("csc", 8): 1, ("csc", 5): 1}),
+    ("graphsaint", {("csr", 16): 2, ("csc", 16): 1}),
+])
+def test_subgraph_step_launches_k1_and_waits_for_nothing(dev, name,
+                                                         per_step):
+    """A cluster or GraphSAINT step on the card runs K1 over its batch's
+    fresh structure (GCN: CSR and CSC at both widths; GraphSAINT 1-1-0 at
+    hidden 8: CSR F=16, CSR F=16 and CSC F=16 for layer 1's two orders) and
+    no operation that makes the host wait for the card."""
+    graph, net, w = _subgraph_wrapper(dev, name)
+    net.to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = list(w.train_batches(graph))
+    assert all(b.x.is_cuda and "spmm_fw_w" in b.extras for b in batches)
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        loss = w.loss(batch, gen)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    losses = []
+    for batch in batches[1:]:
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses.append(step(batch))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert dict(spmm_csr.launches_by) == per_step
+    assert torch.stack(losses).isfinite().all()
+
+
+def test_a_norm_after_the_structure_makes_cuda_spmm_raise(dev):
+    """A normalisation that changes the weights drops the structure, so the
+    kernel's dispatcher raises instead of reading the old weights; a graph
+    already tagged keeps it."""
+    g = _graph(dev)
+    assert spmm(sym_norm(g), g.x).is_cuda      # tagged: kept
+    with pytest.raises(RuntimeError, match="prepare_spmm"):
+        spmm(row_norm(g), g.x)
+
+
+def test_cluster_and_saint_batches_run_k1_like_their_plain_versions(dev):
+    info = chip_smoke.phase_cluster_saint_check(
+        dev, num_nodes=5000, saint_kw=dict(chip_smoke.SAINT_KW,
+                                           walk_roots=200, est_samples=6),
+        iters=2)
+    for label in ("cluster", "saint"):
+        assert info[label]["k1"] <= 1.0
+        assert max(info[label]["max_abs_diff"].values()) < 1e-4
+        assert info[label]["profile"]["busy_ms"] > 0

@@ -31,7 +31,9 @@ from cogdl_tpu_torch.trainer.trainer import Trainer
 from cogdl_tpu_torch.utils.evaluator import masked_cross_entropy
 from cogdl_tpu_torch.wrappers import fetch_wrapper
 from cogdl_tpu_torch.wrappers.sampled_node_classification import (
+    ClusterNodeClfWrapper,
     DeviceSampledNodeClfWrapper,
+    GraphSAINTWrapper,
 )
 
 # fp32 on both sides over identical blocks and weights: the dense layers and
@@ -387,11 +389,20 @@ def test_wrapper_seed_follows_the_variant_seed():
 
 
 @pytest.mark.parametrize("name", ["cluster", "graphsaint"])
-def test_host_sampled_wrappers_are_not_ported(name):
+def test_subgraph_wrappers_resolve_and_train_an_epoch(name):
+    cls = {"cluster": ClusterNodeClfWrapper,
+           "graphsaint": GraphSAINTWrapper}[name]
+    assert fetch_wrapper(name) is cls
+    res = train("sbm", "graphsage", wrapper=name, epochs=1, device="cpu")
+    assert np.isfinite(res["train_loss"]) and 0.0 <= res["test_acc"] <= 1.0
+
+
+def test_an_unported_wrapper_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        fetch_wrapper(name)
+        fetch_wrapper("graph_classification")
     with pytest.raises(ValueError, match="not yet ported"):
-        train("sbm", "graphsage", wrapper=name, epochs=1, device="cpu")
+        train("sbm", "graphsage", wrapper="graph_classification", epochs=1,
+              device="cpu")
 
 
 def test_sampled_entry_points_raise_without_a_card(monkeypatch):

@@ -75,6 +75,30 @@ def test_norms_match_and_are_idempotent(norm):
     assert getattr(tg, norm)(nt) is nt
 
 
+@pytest.mark.parametrize("norm", ["sym_norm", "row_norm", "col_norm"])
+def test_a_norm_that_changes_the_weights_drops_the_kernel_structure(norm):
+    """The structure snapshots the weights: a normalisation that changes
+    them drops every ``spmm_*`` extra (so a CUDA ``spmm`` raises instead of
+    reading the old weights) and keeps the node-level extras; on a graph
+    already tagged with it, it is a no-op and the structure stays."""
+    from cogdl_tpu_torch.ops.cuda import maybe_cuda_spmm, prepare_spmm
+
+    _, gt = _both()
+    keep = torch.ones(gt.n_pad)
+    g = prepare_spmm(gt)
+    g = g.replace(extras={**g.extras, "node_scale": keep})
+    normed = getattr(tg, norm)(g)
+    assert not any(k.startswith("spmm_") for k in normed.extras)
+    assert normed.extras["node_scale"] is keep
+    assert maybe_cuda_spmm(normed, torch.ones(gt.n_pad, 2)) is None
+    tagged = prepare_spmm(normed)
+    again = getattr(tg, norm)(tagged)
+    assert again is tagged and "spmm_fw_w" in again.extras
+    torch.testing.assert_close(again.extras["spmm_fw_w"],
+                               again.edge_weight[: again.num_edges],
+                               rtol=0, atol=0)
+
+
 def test_pad_to_matches():
     gj, gt = _both(seed=3)
     pj = jg.pad_to(gj, gj.n_pad + 37, gj.e_pad + 100)

@@ -61,7 +61,9 @@ def test_scan_covers_the_bench_and_the_kernel_wrappers():
             "cogdl_tpu_torch/ops/cuda/gather_kernels.py",
             "cogdl_tpu_torch/scripts/microbench_gather.py",
             "cogdl_tpu_torch/layers/sage_layer.py",
+            "cogdl_tpu_torch/layers/saint_layer.py",
             "cogdl_tpu_torch/models/nn/graphsage.py",
+            "cogdl_tpu_torch/models/nn/graphsaint.py",
             "cogdl_tpu_torch/utils/timing.py",
             "cogdl_tpu_torch/data/device_sampling.py",
             "cogdl_tpu_torch/data/sampling.py",
