@@ -1,8 +1,17 @@
+from .appnp_layer import APPNPProp
+from .deepergcn_layer import GENConv, ResGNNLayer
 from .gat_layer import GATLayer
 from .gcn_layer import GCNLayer
+from .gcnii_layer import GCNIILayer
+from .mixhop_layer import MixHopLayer
+from .mlp import MLP
 from .sage_layer import SAGELayer
 from .saint_layer import SAINTLayer
+from .se_layer import SELayer
+from .sgc_layer import SGCLayer
 from .utils import CDense, MaskedBatchNorm, get_activation
 
-__all__ = ["GATLayer", "GCNLayer", "SAGELayer", "SAINTLayer", "CDense",
-           "MaskedBatchNorm", "get_activation"]
+__all__ = ["APPNPProp", "GENConv", "ResGNNLayer", "GATLayer", "GCNLayer",
+           "GCNIILayer", "MixHopLayer", "MLP", "SAGELayer", "SAINTLayer",
+           "SELayer", "SGCLayer", "CDense", "MaskedBatchNorm",
+           "get_activation"]

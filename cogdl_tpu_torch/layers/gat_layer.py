@@ -83,14 +83,20 @@ class GATLayer(nn.Module):
         LeCun-normal as flax ``Dense``, ``a_dst`` then ``a_src`` Glorot
         uniform."""
         self.W.reset_parameters(generator)
-        _glorot_uniform_(self.a_dst, generator)
-        _glorot_uniform_(self.a_src, generator)
+        self.reset_own_parameters(generator)
         if hasattr(self, "res_proj"):
             self.res_proj.reset_parameters(generator)
         if self.norm_type == "batchnorm":
             self.norm.reset_parameters(generator)
         elif self.norm_type == "layernorm":
             self.norm.reset_parameters()
+
+    def reset_own_parameters(self,
+                             generator: Optional[torch.Generator] = None):
+        """``a_dst`` then ``a_src``, Glorot uniform: the parameters that are
+        the layer's own rather than a child module's."""
+        _glorot_uniform_(self.a_dst, generator)
+        _glorot_uniform_(self.a_src, generator)
 
     def forward(self, graph: Graph, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

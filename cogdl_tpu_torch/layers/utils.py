@@ -1,6 +1,7 @@
 """Shared layer helpers — the port of ``cogdl_tpu/layers/utils.py``:
 activation lookup, the ``CDense`` linear layer with the JAX package's
-initialisation, generator-driven dropout and ``MaskedBatchNorm``."""
+initialisation, generator-driven dropout, ``MaskedBatchNorm`` and
+``reset_parameters``, which re-initialises a whole model."""
 
 from __future__ import annotations
 
@@ -38,15 +39,26 @@ def get_activation(name):
         ) from None
 
 
+def dropout_keep(shape, rate: float, device,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The keep mask :func:`dropout` draws for a tensor of ``shape``: one
+    uniform per element from ``generator``, kept below ``1 - rate``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout drawn from an explicit generator: keep with
-    probability ``1 - rate`` and scale kept values by ``1 / (1 - rate)``."""
+    probability ``1 - rate`` and scale kept values by ``1 / (1 - rate)``.
+    ``keep``, a mask drawn earlier by :func:`dropout_keep`, is used instead
+    of a fresh draw."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if keep is None:
+        keep = dropout_keep(x.shape, rate, x.device, generator)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -110,3 +122,20 @@ class MaskedBatchNorm(nn.Module):
                 self.var.mul_(mom).add_((1 - mom) * var.detach())
         inv = torch.rsqrt(var + self.epsilon).to(x.dtype)
         return (x - mean.to(x.dtype)) * inv * self.scale + self.bias
+
+
+def reset_parameters(model: nn.Module,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """Re-initialise every parameter of ``model`` from ``generator``, module
+    by module in ``model.modules()`` order: each ``CDense`` and
+    ``MaskedBatchNorm`` by its own ``reset_parameters``, each
+    ``nn.LayerNorm`` to ones and zeros, and each module that holds
+    parameters of its own beside its children (GAT's attention vectors,
+    GENConv's scalars) by its ``reset_own_parameters``."""
+    for m in model.modules():
+        if isinstance(m, (CDense, MaskedBatchNorm)):
+            m.reset_parameters(generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+        elif hasattr(m, "reset_own_parameters"):
+            m.reset_own_parameters(generator)

@@ -1,9 +1,11 @@
 """Model registry — the port of ``cogdl_tpu/models/__init__.py`` — and the
 weight bridge from the JAX package's flax parameters.
 
-``gcn``, ``gat``, ``graphsage`` (alias ``sage``) and ``graphsaint`` are
-ported so far; every other name of the JAX registry waits in ROADMAP.md §1
-("Modules to port").
+``gcn``, ``gat``, ``graphsage`` (alias ``sage``), ``graphsaint`` and the
+full-batch node-classification models ``gcnii``, ``appnp`` (alias
+``ppnp``), ``mixhop``, ``sgc``, ``mlp``, ``deepergcn``, ``drgcn`` and
+``drgat`` are ported so far; every other name of the JAX registry waits in
+ROADMAP.md §1 ("Modules to port").
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "graphsage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
     "sage": "cogdl_tpu_torch.models.nn.graphsage.GraphSAGE",
     "graphsaint": "cogdl_tpu_torch.models.nn.graphsaint.GraphSAINT",
+    "sgc": "cogdl_tpu_torch.models.nn.sgc.SGC",
+    "ppnp": "cogdl_tpu_torch.models.nn.appnp.APPNP",
+    "appnp": "cogdl_tpu_torch.models.nn.appnp.APPNP",
+    "gcnii": "cogdl_tpu_torch.models.nn.gcnii.GCNII",
+    "mixhop": "cogdl_tpu_torch.models.nn.mixhop.MixHop",
+    "mlp": "cogdl_tpu_torch.models.nn.mlp.MLPModel",
+    "deepergcn": "cogdl_tpu_torch.models.nn.deepergcn.DeeperGCN",
+    "drgcn": "cogdl_tpu_torch.models.nn.drgcn.DrGCN",
+    "drgat": "cogdl_tpu_torch.models.nn.drgcn.DrGAT",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 

@@ -16,7 +16,7 @@ from torch import nn
 
 from ...data.graph import Graph, row_norm, sym_norm
 from ...layers import GCNLayer
-from ...layers.utils import CDense, MaskedBatchNorm, dropout
+from ...layers.utils import dropout, reset_parameters
 
 
 class GCN(nn.Module):
@@ -45,11 +45,7 @@ class GCN(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Re-initialise every layer from ``generator`` (in module order)."""
-        for m in self.modules():
-            if isinstance(m, (CDense, MaskedBatchNorm)):
-                m.reset_parameters(generator)
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
+        reset_parameters(self, generator)
 
     def forward(self, graph: Graph, x: Optional[torch.Tensor] = None,
                 training: bool = False,

@@ -28,11 +28,15 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
 }
 
 # model name → default wrapper
-DEFAULT_WRAPPER = {"gcn": "node_classification",
-                   "gat": "node_classification",
-                   "graphsage": "node_classification",
-                   "sage": "node_classification",
-                   "graphsaint": "graphsaint"}
+DEFAULT_WRAPPER = {
+    "gcn": "node_classification", "gat": "node_classification",
+    "graphsage": "node_classification", "sage": "node_classification",
+    "sgc": "node_classification", "appnp": "node_classification",
+    "ppnp": "node_classification", "gcnii": "node_classification",
+    "mixhop": "node_classification", "mlp": "node_classification",
+    "deepergcn": "node_classification", "graphsaint": "graphsaint",
+    "drgcn": "node_classification", "drgat": "node_classification",
+}
 
 
 def fetch_wrapper(name: str):

@@ -76,12 +76,14 @@ def timed_batches(draws: Iterator, prepare, host_ms) -> Iterator:
 def reads_kernel_structure(model) -> bool:
     """Whether a layer of ``model`` runs K1 or K3 over a batch, and so needs
     the structure ``prepare_spmm`` builds: GAT, GCN, SAINT layers that
-    propagate (order above 0), and GraphSAGE summing its neighbours
-    (``sum``, ``gcn``). GraphSAGE ``mean`` and ``max`` are torch index
-    ops."""
+    propagate (order above 0), GraphSAGE summing its neighbours (``sum``,
+    ``gcn``), and every layer whose ``calls_spmm`` says it propagates
+    (GCNII, APPNP, MixHop and SGC). GraphSAGE ``mean`` and ``max`` and
+    DeeperGCN's GENConv are torch index ops."""
     return any(isinstance(m, (GATLayer, GCNLayer))
                or (isinstance(m, SAGELayer) and m.aggr in ("sum", "gcn"))
                or (isinstance(m, SAINTLayer) and m.order > 0)
+               or getattr(m, "calls_spmm", False)
                for m in model.modules())
 
 
