@@ -158,8 +158,9 @@ def make_graph(args: argparse.Namespace, device: torch.device) -> Graph:
     g = prepare_spmm_device(g, symmetric=True, with_orig=args.model == "gat",
                             panel_rows=args.panel_rows)
     z = torch.zeros(1, dtype=torch.int32, device=device)
-    return g.replace(row=z, col=z,
-                     edge_weight=torch.zeros(1, device=device))
+    # frees the edge arrays; the structure, passed as it is, keeps its weights
+    return g.replace(row=z, col=z, edge_weight=torch.zeros(1, device=device),
+                     extras=g.extras)
 
 
 def make_model(args: argparse.Namespace, graph: Graph, device: torch.device

@@ -1,6 +1,7 @@
 """Tuned per-(model, dataset) hyper-parameters — the port's copy of the
-``gcn``, ``gat``, ``gcnii``, ``appnp``, ``sgc``, ``mixhop``, ``graphsage`` and
-``deepergcn`` entries of ``cogdl_tpu/configs.py``; applied when
+``gcn``, ``gat``, ``gcnii``, ``appnp``, ``grand``, ``sgc``, ``mixhop``,
+``graphsage``, ``sign``, ``deepergcn``, ``dropedge_gcn`` and ``revgcn``
+entries of ``cogdl_tpu/configs.py``; applied when
 ``use_best_config=True`` with precedence defaults < best-config < user
 kwargs."""
 
@@ -31,6 +32,15 @@ BEST_CONFIGS = {
                     "patience": 100, "hidden_size": 64, "dropout": 0.5,
                     "propagation_steps": 10, "alpha": 0.1},
     },
+    "grand": {
+        "general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 1000,
+                    "patience": 200, "hidden_size": 32,
+                    "sample": 4, "order": 8, "tem": 0.5, "lam": 1.0,
+                    "input_dropout": 0.5, "hidden_dropout": 0.5},
+        "cora": {"order": 8, "sample": 4},
+        "citeseer": {"order": 2, "sample": 2},
+        "pubmed": {"order": 5, "sample": 4, "hidden_dropout": 0.8},
+    },
     "sgc": {"general": {"lr": 0.1, "weight_decay": 1e-5, "epochs": 200,
                         "order": 2}},
     "mixhop": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 500,
@@ -38,8 +48,17 @@ BEST_CONFIGS = {
     "graphsage": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 500,
                               "patience": 100, "hidden_size": 64,
                               "dropout": 0.5}},
+    "sign": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 300,
+                         "patience": 50, "hidden_size": 64, "num_hops": 3,
+                         "dropout": 0.5}},
     "deepergcn": {"general": {"lr": 0.005, "weight_decay": 5e-4,
                               "epochs": 500, "patience": 100,
                               "hidden_size": 64, "num_layers": 14,
                               "dropout": 0.2}},
+    "dropedge_gcn": {"general": {"lr": 0.01, "weight_decay": 5e-4,
+                                 "epochs": 400, "patience": 100,
+                                 "dropedge_rate": 0.2, "num_layers": 4}},
+    "revgcn": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 500,
+                           "patience": 100, "num_layers": 8,
+                           "hidden_size": 64}},
 }

@@ -12,8 +12,11 @@ the two packages compare one to one):
       - pad edges point at the *sink node* ``n_pad - 1`` (a pad node whenever
         pad edges exist) with ``edge_weight == 0``.
   * Normalisation folds into ``edge_weight`` and tags ``meta["norm"]`` so a
-    second call is free. A normalisation that changes the weights drops the
-    kernel structure (``spmm_*`` extras), which holds the old ones.
+    second call is free.
+  * New weights reach the kernel structure (``spmm_*`` extras): every way
+    of changing them (``with_edge_weight``, ``replace(edge_weight=...)``
+    without new extras, the norms) takes the structure's weights from the
+    new ones and keeps its topology (``ops.cuda.reweighted_structure``).
 
 Construction and structural rebuilds run on the host with numpy; the result
 lands on the device of the graph it was built from. Weight transforms
@@ -143,7 +146,28 @@ class Graph:
         return w.new_zeros(self.n_pad).index_add_(0, self.col, w)
 
     def replace(self, **kw) -> "Graph":
+        """A copy with the fields ``kw`` replaced. New ``edge_weight``
+        without new ``extras`` is a reweight (:meth:`with_edge_weight`); a
+        caller that passes both (a copy to another device) passes the
+        kernel structure that goes with the weights, as it is."""
+        if "edge_weight" in kw and "extras" not in kw:
+            w = kw.pop("edge_weight")
+            return dataclasses.replace(self, **kw).with_edge_weight(w)
         return dataclasses.replace(self, **kw)
+
+    def with_edge_weight(self, w: torch.Tensor) -> "Graph":
+        """The graph with the weights ``w`` (``[e_pad]``). A kernel
+        structure in ``extras``, which K1 reads, takes them too
+        (``ops.cuda.reweighted_structure``): ``spmm_fw_w`` with their
+        gradient, ``spmm_bw_w`` as a constant, one gather each; its
+        topology and schedules stay. A structure that cannot take new
+        weights (panel-major) raises."""
+        g = dataclasses.replace(self, edge_weight=w)
+        if g.extras and "spmm_fw_w" in g.extras:
+            from ..ops.cuda import reweighted_structure
+
+            g = dataclasses.replace(g, extras=reweighted_structure(g))
+        return g
 
     def with_meta(self, **kw) -> "Graph":
         d = dict(self.meta)
@@ -333,10 +357,10 @@ def col_norm(g: Graph) -> Graph:
 
 
 def _reweighted(g: Graph, w: torch.Tensor, norm: str) -> Graph:
-    """``g`` with the weights ``w``, tagged ``meta["norm"] = norm``. A kernel
-    structure in extras (``spmm_*``) holds a copy of the old weights and is
-    dropped, so that a CUDA ``spmm`` raises instead of reading them."""
-    return _without_structure(g).replace(edge_weight=w).with_meta(norm=norm)
+    """``g`` with the weights ``w``, tagged ``meta["norm"] = norm``; a kernel
+    structure in extras takes the new weights
+    (:meth:`Graph.with_edge_weight`)."""
+    return g.with_edge_weight(w).with_meta(norm=norm)
 
 
 def _without_structure(g: Graph) -> Graph:

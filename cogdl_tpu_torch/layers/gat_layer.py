@@ -17,7 +17,6 @@ Three routes, chosen by the graph as in the JAX layer:
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -26,17 +25,15 @@ from torch import nn
 
 from ..data.graph import Graph
 from ..ops import edge_softmax, gather, gather_src, mh_spmm
-from ..ops.cuda import maybe_cuda_gat_fused
-from .utils import CDense, MaskedBatchNorm, dropout, get_activation
-
-
-def _glorot_uniform_(p: torch.Tensor,
-                     generator: Optional[torch.Generator]) -> None:
-    """flax ``glorot_uniform`` for a ``[1, H, D]`` parameter: fan_in H,
-    fan_out D (the last two axes), limit ``sqrt(6 / (H + D))``."""
-    limit = math.sqrt(6.0 / (p.shape[-2] + p.shape[-1]))
-    with torch.no_grad():
-        p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * limit)
+from ..ops.cuda import draw_gat_seed, has_gat_structure, maybe_cuda_gat_fused
+from .utils import (
+    CDense,
+    MaskedBatchNorm,
+    dropout,
+    dropout_keep,
+    get_activation,
+    glorot_uniform_,
+)
 
 
 class GATLayer(nn.Module):
@@ -95,11 +92,30 @@ class GATLayer(nn.Module):
                              generator: Optional[torch.Generator] = None):
         """``a_dst`` then ``a_src``, Glorot uniform: the parameters that are
         the layer's own rather than a child module's."""
-        _glorot_uniform_(self.a_dst, generator)
-        _glorot_uniform_(self.a_src, generator)
+        glorot_uniform_(self.a_dst, generator)
+        glorot_uniform_(self.a_src, generator)
+
+    def draw_attn_drop(self, graph: Graph, device,
+                       generator: Optional[torch.Generator] = None,
+                       training: bool = True) -> Optional[torch.Tensor]:
+        """The attention-dropout draw :meth:`forward` would make on a full
+        graph, made now: K3's seed on the fused route, the ``[e_pad, H]``
+        keep mask on the unfused one; None without dropout. A checkpointed
+        caller draws it outside the recomputed call and passes it as
+        ``attn_rand``, so that the recompute drops the same edges."""
+        if not training or self.attn_drop <= 0.0:
+            return None
+        if has_gat_structure(graph):
+            return draw_gat_seed(generator, device)
+        return dropout_keep((graph.e_pad, self.nhead), self.attn_drop, device,
+                            generator)
 
     def forward(self, graph: Graph, x: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``attn_rand``: the attention-dropout draw made ahead by
+        :meth:`draw_attn_drop` for a full graph, used instead of a draw
+        from ``generator``."""
         H, D = self.nhead, self.out_features
         h = self.W(x).view(-1, H, D)
         # additive attention split into dst and src halves (aᵀ[Wh_i || Wh_j])
@@ -113,12 +129,12 @@ class GATLayer(nn.Module):
             score_src = (h * self.a_src).sum(-1)
             out = maybe_cuda_gat_fused(graph, score_dst, score_src, h,
                                        alpha=self.alpha, attn_drop=drop,
-                                       generator=generator)
+                                       generator=generator, seed=attn_rand)
         if out is None:
             e = gather(score_dst, graph.row) + gather_src(graph, score_src)
             att = edge_softmax(graph, F.leaky_relu(e, self.alpha))
             if drop > 0:
-                att = dropout(att, drop, generator)
+                att = dropout(att, drop, generator, keep=attn_rand)
             out = mh_spmm(graph, att, h)                    # [N, H, D]
         out = out.reshape(-1, H * D) if self.concat else out.mean(1)
         if self.residual:

@@ -41,7 +41,10 @@ class GCNLayer(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor, training: bool = False,
                 prop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: the dropout mask, drawn ahead by ``dropout_keep`` (a
+        checkpointed caller draws it outside the recomputed call)."""
         if prop is not None:
             # cached propagation (ops.spmm.cache_propagation): the layer input
             # is the static graph.x, so Â(XW + 1bᵀ) = (ÂX)W + (Â1)bᵀ
@@ -63,5 +66,5 @@ class GCNLayer(nn.Module):
         if self.activation is not None:
             out = get_activation(self.activation)(out)
         if self.dropout > 0 and training:
-            out = dropout(out, self.dropout, generator)
+            out = dropout(out, self.dropout, generator, keep=keep)
         return out

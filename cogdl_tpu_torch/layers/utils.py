@@ -27,6 +27,28 @@ _ACTIVATIONS = {
 }
 
 
+def flax_fans(shape):
+    """flax ``variance_scaling``'s ``(fan_in, fan_out)`` of a kernel of
+    ``shape``: the last two axes are in and out, every axis before them a
+    receptive field that multiplies both (an ``[E, D, H]`` tensor: ``D·E``
+    and ``H·E``, where ``nn.init.xavier_uniform_`` counts ``D·H`` and
+    ``E·H``)."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def glorot_uniform_(p: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """flax ``glorot_uniform`` in place: uniform in ``±sqrt(6 / (fan_in +
+    fan_out))`` with :func:`flax_fans`, one draw an element from
+    ``generator``."""
+    fan_in, fan_out = flax_fans(tuple(p.shape))
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0)
+                * limit)
+
+
 def get_activation(name):
     """Activation by name; ``None`` is the identity."""
     if name is None:

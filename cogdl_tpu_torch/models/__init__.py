@@ -3,9 +3,11 @@ weight bridge from the JAX package's flax parameters.
 
 ``gcn``, ``gat``, ``graphsage`` (alias ``sage``), ``graphsaint`` and the
 full-batch node-classification models ``gcnii``, ``appnp`` (alias
-``ppnp``), ``mixhop``, ``sgc``, ``mlp``, ``deepergcn``, ``drgcn`` and
-``drgat`` are ported so far; every other name of the JAX registry waits in
-ROADMAP.md §1 ("Modules to port").
+``ppnp``), ``mixhop``, ``sgc``, ``mlp``, ``deepergcn``, ``drgcn``,
+``drgat``, ``sign``, ``dropedge_gcn``, ``revgcn``, ``revgat``, ``revgen``,
+``grand``, ``pprgo``, ``moe_gcn``, ``robustgcn``, ``gnnguard_gcn``,
+``gdc_gcn``, ``actgcn`` and ``autognn`` are ported so far; every other name
+of the JAX registry waits in ROADMAP.md §1 ("Modules to port").
 """
 
 from __future__ import annotations
@@ -34,6 +36,19 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "deepergcn": "cogdl_tpu_torch.models.nn.deepergcn.DeeperGCN",
     "drgcn": "cogdl_tpu_torch.models.nn.drgcn.DrGCN",
     "drgat": "cogdl_tpu_torch.models.nn.drgcn.DrGAT",
+    "sign": "cogdl_tpu_torch.models.nn.sign.SIGN",
+    "dropedge_gcn": "cogdl_tpu_torch.models.nn.dropedge_gcn.DropEdgeGCN",
+    "revgcn": "cogdl_tpu_torch.models.nn.revgcn.RevGCN",
+    "revgat": "cogdl_tpu_torch.models.nn.revgcn.RevGAT",
+    "revgen": "cogdl_tpu_torch.models.nn.revgcn.RevGEN",
+    "grand": "cogdl_tpu_torch.models.nn.grand.Grand",
+    "pprgo": "cogdl_tpu_torch.models.nn.pprgo.PPRGo",
+    "moe_gcn": "cogdl_tpu_torch.models.nn.moe_gcn.MoEGCN",
+    "robustgcn": "cogdl_tpu_torch.models.nn.robustgcn.RobustGCN",
+    "gnnguard_gcn": "cogdl_tpu_torch.models.nn.gnnguard.GNNGuardGCN",
+    "gdc_gcn": "cogdl_tpu_torch.models.nn.gdc_gcn.GDCGCN",
+    "actgcn": "cogdl_tpu_torch.models.nn.actgcn.ActGCN",
+    "autognn": "cogdl_tpu_torch.models.nn.autognn.AutoGNN",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 

@@ -76,9 +76,9 @@ def prepare_spmm(graph):
     built from the first ``num_edges`` edges only: pad edges all sit in the
     sink row and would give one warp up to a quarter of E serial
     iterations. Beside each direction goes its :class:`SpmmSchedule`
-    (``spmm_*_<field>``). Call after
-    normalisation: the structure snapshots
-    ``edge_weight``. Runs on the graph's device."""
+    (``spmm_*_<field>``). The weights are ``edge_weight``'s at the call; a
+    later change of the graph's weights rebuilds them
+    (:func:`reweighted_structure`). Runs on the graph's device."""
     E, n = graph.num_edges, graph.n_pad
     if E >= 2 ** 31:
         raise ValueError(f"prepare_spmm: {E} edges overflow int32 indices")
@@ -105,6 +105,31 @@ def prepare_spmm(graph):
         extras.update({f"spmm_{d}_{k}": t
                        for k, t in sched._asdict().items()})
     return graph.replace(extras=extras).with_meta(spmm_panel_rows=0)
+
+
+def reweighted_structure(graph):
+    """``graph.extras`` with the kernel structure's weights taken from
+    ``graph.edge_weight``: ``spmm_fw_w`` keeps the weights' gradient (K1's
+    ``dw`` reaches them through :class:`SpMMFunction`), ``spmm_bw_w`` is a
+    constant, each one gather of ``num_edges`` floats through the entries'
+    positions in the edge list (``spmm_*_orig``). Pointers, columns and
+    schedules stay. Extras without weights (the fused GAT structure) are
+    returned as they are: nothing in them is stale. A panel-major structure,
+    or one without ``spmm_*_orig``, has no map back to the edge list and
+    raises rather than keep the old weights."""
+    extras = graph.extras
+    if not extras or "spmm_fw_w" not in extras:
+        return extras
+    if _panel_route(graph) or not all(
+            f"spmm_{d}_orig" in extras for d in ("fw", "bw")):
+        raise ValueError(
+            "cannot reweight this kernel structure: it is panel-major or has "
+            "no spmm_*_orig map back to the edge list; prepare the graph "
+            "again (prepare_spmm) after changing its weights")
+    w = graph.edge_weight[: graph.num_edges].float()
+    return {**extras,
+            "spmm_fw_w": w.index_select(0, extras["spmm_fw_orig"]),
+            "spmm_bw_w": w.detach().index_select(0, extras["spmm_bw_orig"])}
 
 
 def stored_schedule(extras, direction: str) -> Optional[SpmmSchedule]:
@@ -157,10 +182,27 @@ _GAT_KEYS = ("spmm_fw_ptr", "spmm_fw_col", "spmm_fw_orig",
              "spmm_bw_ptr", "spmm_bw_col", "spmm_bw_orig")
 
 
+def has_gat_structure(graph) -> bool:
+    """Whether ``graph`` carries the structure the fused GAT route reads: a
+    panel structure, or a one-panel one with ``spmm_*_orig``."""
+    extras = graph.extras
+    return bool(extras) and "spmm_fw_ptr" in extras and (
+        _panel_route(graph) or "spmm_fw_orig" in extras)
+
+
+def draw_gat_seed(generator: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+    """K3's dropout seed, one int64 in ``[0, 2³¹ − 1)`` from ``generator``
+    on ``device``."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device)
+
+
 def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
                          score_src: torch.Tensor, h: torch.Tensor,
                          alpha: float = 0.2, attn_drop: float = 0.0,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         seed: Optional[torch.Tensor] = None
                          ) -> Optional[torch.Tensor]:
     """Fused GAT attention (scores, softmax, dropout, aggregation) through
     K3 and :class:`GATFusedFunction` when the graph carries the prepared
@@ -171,13 +213,14 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
     decision, as in the JAX package), and needs no ``spmm_*_orig``. ``h`` is
     ``[n_pad, H, D]``, the score halves ``[n_pad, H]``; ``score_src`` must
     equal ``Σ_d a_src·h``. With ``attn_drop > 0`` one seed in
-    ``[0, 2³¹ − 1)`` is drawn from ``generator`` per call. Returns
+    ``[0, 2³¹ − 1)`` is drawn from ``generator`` per call
+    (:func:`draw_gat_seed`), unless ``seed`` gives the one drawn ahead (a
+    checkpointed caller draws it outside the recomputed call). Returns
     ``[n_pad, H, D]``; None for a CPU tensor on a graph without the
     structure (the caller takes the unfused route); raises for a CUDA
     tensor without it."""
     extras = graph.extras
-    if not extras or "spmm_fw_ptr" not in extras or not (
-            _panel_route(graph) or "spmm_fw_orig" in extras):
+    if not has_gat_structure(graph):
         if h.is_cuda:
             raise RuntimeError(
                 "GAT attention on a CUDA tensor runs the fused attention "
@@ -189,10 +232,10 @@ def maybe_cuda_gat_fused(graph, score_dst: torch.Tensor,
     if H > GAT_MAX_HEADS:
         raise ValueError(f"the fused GAT kernel takes at most {GAT_MAX_HEADS} "
                          f"heads, got {H}")
-    seed = None
-    if attn_drop > 0.0:
-        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                             device=h.device)
+    if attn_drop <= 0.0:
+        seed = None
+    elif seed is None:
+        seed = draw_gat_seed(generator, h.device)
     out = GATFusedFunction.apply(score_dst, score_src, h.reshape(-1, H * D),
                                  *(extras.get(k) for k in _GAT_KEYS), seed,
                                  float(alpha), float(attn_drop),

@@ -258,7 +258,8 @@ def prepare_spmm_device(graph, symmetric: bool = False,
     """``prepare_spmm`` for a graph that lives on the device: attaches the
     kernels' structure, built there by :func:`build_spmm_structure`, under
     the same ``spmm_fw_*``/``spmm_bw_*`` names. Call after normalisation:
-    the structure snapshots ``edge_weight``.
+    only a one-panel structure with ``spmm_*_orig`` takes new weights later
+    (``reweighted_structure``); any other refuses them.
 
     ``symmetric=True`` (an undirected graph under a symmetric
     normalisation, ``Aᵀ = A``): the backward uses the forward's tensors

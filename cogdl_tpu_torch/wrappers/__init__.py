@@ -36,6 +36,14 @@ DEFAULT_WRAPPER = {
     "mixhop": "node_classification", "mlp": "node_classification",
     "deepergcn": "node_classification", "graphsaint": "graphsaint",
     "drgcn": "node_classification", "drgat": "node_classification",
+    "sign": "node_classification", "dropedge_gcn": "node_classification",
+    "revgcn": "node_classification", "revgat": "node_classification",
+    "revgen": "node_classification", "grand": "node_classification",
+    "pprgo": "node_classification", "moe_gcn": "node_classification",
+    "robustgcn": "node_classification",
+    "gnnguard_gcn": "node_classification",
+    "gdc_gcn": "node_classification", "actgcn": "node_classification",
+    "autognn": "node_classification",
 }
 
 

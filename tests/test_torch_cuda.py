@@ -15,7 +15,7 @@ import torch
 from cogdl_tpu_torch import bench, experiment
 from cogdl_tpu_torch.data.graph import add_self_loops, sym_norm
 from cogdl_tpu_torch.datasets.synthetic import powerlaw_graph, sbm_graph
-from cogdl_tpu_torch.ops import spmm
+from cogdl_tpu_torch.ops import spmm, spmm_coo
 from cogdl_tpu_torch.ops.cuda import prepare_spmm, prepare_spmm_device
 from cogdl_tpu_torch.ops.cuda import maybe_cuda_gat_fused
 from cogdl_tpu_torch.ops.cuda import gather_kernels as gk
@@ -143,9 +143,9 @@ def test_experiment_on_card_goes_through_kernel(dev):
 # the scalar one, more columns than one pass of the chunk kernel takes
 # (H·D=150, a head across the pass boundary), the most heads of the
 # row-a-warp kernel (32), heads in two passes of 32 (64) and the most
-# (128); DrGAT's 8 heads of 8
+# (128); DrGAT's 8 heads of 8, RevGAT's 2 heads of 32
 GAT_SHAPES = [(1, 1), (4, 1), (1, 4), (1, 47), (8, 16), (3, 50), (32, 2),
-              (64, 4), (128, 1), (8, 8)]
+              (64, 4), (128, 1), (8, 8), (2, 32)]
 
 
 def _gat_case(dev, H, D, seed=0):
@@ -1171,6 +1171,29 @@ def test_prefetched_host_batches_land_on_the_card_as_drawn(dev):
             assert torch.equal(ta, tb.to(dev)), na
 
 
+def test_a_prefetched_batchs_structure_weights_are_copied_tensors(dev):
+    """The worker's copy of a host batch hands the blocks' ``spmm_*_w``
+    over as the tensors it copied, which the consumer's stream then marks
+    (``record_stream``), not as new ones gathered on the copy stream."""
+    from cogdl_tpu_torch.data.sampling import _to_device
+
+    _, _, w = _host_sampled(dev, "graphsage", aggr="sum")
+    batch = next(iter(Prefetcher(w._epoch_batches)))
+    copied = []
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        moved = _to_device(batch, dev, copied, {})
+    torch.cuda.synchronize()
+    ids = {id(t) for t in copied}
+    weighted = [(h, c) for h, c in zip(batch, moved)
+                if "spmm_fw_w" in (h.extras or {})]
+    assert weighted
+    for host, card in weighted:
+        for d in ("fw", "bw"):
+            t = card.extras[f"spmm_{d}_w"]
+            assert t.is_cuda and id(t) in ids
+            assert torch.equal(t.cpu(), host.extras[f"spmm_{d}_w"])
+
+
 @pytest.mark.parametrize("model,kw,per_step", [
     ("graphsage", {"aggr": "sum"},
      {"spmm_csr": {("csr", 16): 1, ("csr", 8): 1, ("csc", 8): 1}}),
@@ -1287,13 +1310,19 @@ def test_subgraph_step_launches_k1_and_waits_for_nothing(dev, name,
 
 
 def test_a_norm_after_the_structure_makes_cuda_spmm_raise(dev):
-    """A normalisation that changes the weights drops the structure, so the
-    kernel's dispatcher raises instead of reading the old weights; a graph
-    already tagged keeps it."""
+    """A normalisation that changes the weights hands them to the structure:
+    K1 on the card reads the new weights (against the plain tier over
+    them), never the old ones; a graph already tagged keeps its structure
+    as it is."""
     g = _graph(dev)
     assert spmm(sym_norm(g), g.x).is_cuda      # tagged: kept
-    with pytest.raises(RuntimeError, match="prepare_spmm"):
-        spmm(row_norm(g), g.x)
+    normed = row_norm(g)
+    torch.testing.assert_close(
+        normed.extras["spmm_fw_w"], normed.edge_weight[: g.num_edges],
+        rtol=0, atol=0)
+    out = spmm(normed, g.x)
+    ref = spmm_coo(g.x, normed.row, normed.col, normed.edge_weight, g.n_pad)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_cluster_and_saint_batches_run_k1_like_their_plain_versions(dev):
@@ -1343,6 +1372,68 @@ def test_zoo_model_on_card_matches_the_cpu_and_launches_its_kernel(dev,
         # blocks); chip_smoke.py's zoo-parity holds all 14 at 20k nodes
         net = build_model(model, in_features=32, out_features=4,
                           dropout=0.0, num_layers=3)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    g = sbm_graph(num_nodes=400, seed=0)
+    logits = []
+    for d in (torch.device("cpu"), dev):
+        m = copy.deepcopy(net).to(d)
+        with torch.no_grad():
+            logits.append(m(NodeClfWrapper(m).prepare_graph(g.to(d))).cpu())
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+
+
+def test_k1_after_two_reweights_matches_plain_autograd(dev):
+    """A prepared graph whose weights are replaced twice, the second time
+    with weights that take a gradient: K1's forward and its CSC backward
+    read the new weights, and ``dw`` reaches them, against ``spmm_coo``'s
+    autograd over the same weights; one launch each way."""
+    g = _graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    E = g.num_edges
+    for _ in range(2):
+        w = torch.zeros(g.e_pad, device=dev)
+        w[:E] = torch.rand(E, generator=gen, device=dev) * 2 - 0.5
+        g = g.replace(edge_weight=w.requires_grad_(True))
+    x = torch.randn(g.n_pad, 47, generator=gen, device=dev,
+                    requires_grad=True)
+    probe = torch.randn(g.n_pad, 47, generator=gen, device=dev)
+    reset_launch_counts()
+    y = spmm(g, x)
+    dx, dw = torch.autograd.grad((y * probe).sum(), (x, w))
+    torch.cuda.synchronize()
+    assert dict(spmm_csr.launches_by) == {("csr", 47): 1, ("csc", 47): 1}
+    xr = x.detach().clone().requires_grad_(True)
+    wr = w.detach().clone().requires_grad_(True)
+    yr = spmm_coo(xr, g.row, g.col, wr, g.n_pad)
+    dxr, dwr = torch.autograd.grad((yr * probe).sum(), (xr, wr))
+    for a, b in ((y, yr), (dx, dxr), (dw[:E], dwr[:E])):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+REST_OF_ZOO = ("sign", "dropedge_gcn", "revgcn", "revgat", "revgen",
+               "grand", "pprgo", "moe_gcn", "robustgcn", "gnnguard_gcn",
+               "gdc_gcn", "actgcn", "autognn")
+
+
+@pytest.mark.parametrize("model", REST_OF_ZOO)
+def test_rest_of_zoo_on_card_matches_the_cpu_and_launches_its_kernel(
+        dev, model):
+    """Each model on ``sbm`` through ``experiment()`` on the card: RevGAT
+    launches K3 and nothing else, RevGEN nothing, the rest K1 and nothing
+    else; and the same weights give the card's logits within 1e-4 of the
+    CPU's, dropout off, the in-forward reweights included."""
+    from cogdl_tpu_torch.models import build_model
+    from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
+
+    reset_launch_counts()
+    (res,) = experiment(dataset="sbm", model=model, epochs=3,
+                        eval_step=1)[("sbm", model)]
+    assert math.isfinite(res["train_loss"])
+    launched = {k for k, v in (("spmm_csr", spmm_csr.launches),
+                               ("gat_pass", gat_pass.launches)) if v}
+    assert launched == {"revgat": {"gat_pass"}, "revgen": set()}.get(
+        model, {"spmm_csr"})
+    net = build_model(model, in_features=32, out_features=4, dropout=0.0)
     net.reset_parameters(torch.Generator().manual_seed(0))
     g = sbm_graph(num_nodes=400, seed=0)
     logits = []

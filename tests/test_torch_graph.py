@@ -77,10 +77,12 @@ def test_norms_match_and_are_idempotent(norm):
 
 @pytest.mark.parametrize("norm", ["sym_norm", "row_norm", "col_norm"])
 def test_a_norm_that_changes_the_weights_drops_the_kernel_structure(norm):
-    """The structure snapshots the weights: a normalisation that changes
-    them drops every ``spmm_*`` extra (so a CUDA ``spmm`` raises instead of
-    reading the old weights) and keeps the node-level extras; on a graph
-    already tagged with it, it is a no-op and the structure stays."""
+    """A normalisation that changes the weights hands them to the structure:
+    its ``spmm_*_w`` become the new weights (the forward's with their
+    gradient, the transpose's in CSC order), its topology stays, the
+    node-level extras stay, and K1's route reads the new weights; on a
+    graph already tagged with it, it is a no-op and the structure stays."""
+    from cogdl_tpu_torch.ops import spmm_coo
     from cogdl_tpu_torch.ops.cuda import maybe_cuda_spmm, prepare_spmm
 
     _, gt = _both()
@@ -88,9 +90,22 @@ def test_a_norm_that_changes_the_weights_drops_the_kernel_structure(norm):
     g = prepare_spmm(gt)
     g = g.replace(extras={**g.extras, "node_scale": keep})
     normed = getattr(tg, norm)(g)
-    assert not any(k.startswith("spmm_") for k in normed.extras)
+    E = normed.num_edges
+    assert not torch.equal(normed.edge_weight, g.edge_weight)
+    torch.testing.assert_close(normed.extras["spmm_fw_w"],
+                               normed.edge_weight[:E], rtol=0, atol=0)
+    torch.testing.assert_close(
+        normed.extras["spmm_bw_w"],
+        normed.edge_weight[:E][g.extras["spmm_bw_orig"].long()],
+        rtol=0, atol=0)
+    for k in ("spmm_fw_ptr", "spmm_fw_col", "spmm_bw_ptr", "spmm_bw_col"):
+        assert normed.extras[k] is g.extras[k]
     assert normed.extras["node_scale"] is keep
-    assert maybe_cuda_spmm(normed, torch.ones(gt.n_pad, 2)) is None
+    x = torch.randn(gt.n_pad, 2)
+    torch.testing.assert_close(
+        maybe_cuda_spmm(normed, x),
+        spmm_coo(x, normed.row, normed.col, normed.edge_weight, gt.n_pad),
+        rtol=1e-5, atol=1e-6)
     tagged = prepare_spmm(normed)
     again = getattr(tg, norm)(tagged)
     assert again is tagged and "spmm_fw_w" in again.extras
