@@ -1,7 +1,7 @@
 """Tuned per-(model, dataset) hyper-parameters — the port's copy of the
 ``gcn``, ``gat``, ``gcnii``, ``appnp``, ``grand``, ``sgc``, ``mixhop``,
-``graphsage``, ``sign``, ``deepergcn``, ``dropedge_gcn`` and ``revgcn``
-entries of ``cogdl_tpu/configs.py``; applied when
+``graphsage``, ``sign``, ``deepergcn``, ``dropedge_gcn``, ``revgcn`` and
+``gin`` entries of ``cogdl_tpu/configs.py``; applied when
 ``use_best_config=True`` with precedence defaults < best-config < user
 kwargs."""
 
@@ -61,4 +61,6 @@ BEST_CONFIGS = {
     "revgcn": {"general": {"lr": 0.01, "weight_decay": 5e-4, "epochs": 500,
                            "patience": 100, "num_layers": 8,
                            "hidden_size": 64}},
+    "gin": {"general": {"lr": 0.005, "weight_decay": 5e-4, "epochs": 300,
+                        "patience": 50, "hidden_size": 32, "num_layers": 5}},
 }

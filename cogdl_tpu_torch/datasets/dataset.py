@@ -1,11 +1,14 @@
-"""Dataset container — the port of the single-graph half of
-``cogdl_tpu/datasets/dataset.py``."""
+"""Dataset container — the port of the graph halves of
+``cogdl_tpu/datasets/dataset.py``: one graph (node-level tasks), or a list
+of graphs with their labels and an optional official split (graph-level
+tasks)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..data.graph import Graph
@@ -15,6 +18,11 @@ from ..data.graph import Graph
 class Dataset:
     name: str = "dataset"
     graph: Optional[Graph] = None
+    graphs: Optional[List[Graph]] = None
+    labels: Optional[np.ndarray] = None
+    # official split of a multi-graph set: "train", "valid" (or "val") and
+    # "test" index arrays, which the graph classification wrapper honours
+    split_idx: Optional[Dict[str, np.ndarray]] = None
     metric: str = "accuracy"
 
     @classmethod
@@ -22,21 +30,40 @@ class Dataset:
                    metric: str = "accuracy"):
         return cls(name=name, graph=graph, metric=metric)
 
+    @classmethod
+    def from_graphs(cls, graphs: List[Graph], labels=None,
+                    name: str = "dataset", split_idx=None):
+        return cls(name=name, graphs=graphs, labels=labels,
+                   split_idx=split_idx)
+
+    def _first(self) -> Optional[Graph]:
+        if self.graph is not None:
+            return self.graph
+        return self.graphs[0] if self.graphs else None
+
     @property
     def num_features(self) -> int:
-        if self.graph is None or self.graph.x is None:
+        g = self._first()
+        if g is None or g.x is None:
             return 0
-        return self.graph.num_features
+        return g.num_features
 
     @property
     def num_classes(self) -> Optional[int]:
-        if self.graph is None:
+        g = self._first()
+        if g is None:
             return None
-        g = self.graph
         nc = g.num_classes
         if nc is None and g.y is not None:
             nc = int(torch.max(g.y)) + 1 if g.y.ndim == 1 else int(g.y.shape[1])
+        if nc is None and self.labels is not None:
+            nc = int(np.max(self.labels)) + 1
         return nc
 
+    def __len__(self):
+        return len(self.graphs) if self.graphs is not None else 1
+
     def __repr__(self):
+        if self.graphs is not None:
+            return f"Dataset({self.name}, {len(self.graphs)} graphs)"
         return f"Dataset({self.name}, {self.graph})"

@@ -1,8 +1,8 @@
 """Synthetic graph generators — the port of the ``sbm_graph``,
-``powerlaw_graph`` and ``powerlaw_graph_device`` parts of
-``cogdl_tpu/datasets/synthetic.py``.
+``powerlaw_graph``, ``powerlaw_graph_device`` and ``random_graphs_dataset``
+parts of ``cogdl_tpu/datasets/synthetic.py``.
 
-The two host generators draw from ``np.random.default_rng(seed)`` with the
+The three host generators draw from ``np.random.default_rng(seed)`` with the
 same calls in the same order as the JAX package, so the same arguments give
 the same graph in both packages. ``powerlaw_graph_device`` and the features
 of ``powerlaw_graph(device_features=True)`` are drawn on the device from a
@@ -215,3 +215,33 @@ def powerlaw_graph_device(
             "symmetric": bool(undirected),
             "name": f"powerlaw{num_nodes}-dev"}.items())),
     )
+
+
+def random_graphs_dataset(
+    num_graphs: int = 60,
+    min_nodes: int = 10,
+    max_nodes: int = 30,
+    num_classes: int = 2,
+    feat_dim: int = 8,
+    seed: int = 0,
+):
+    """Multi-graph classification set: class 0 sparse Erdős–Rényi graphs,
+    class 1 dense ones (learnable from the mean degree), each with self
+    loops and Gaussian node features. Returns ``(graphs, labels)``, the JAX
+    package's graphs for the same arguments."""
+    rng = np.random.default_rng(seed)
+    graphs, labels = [], []
+    for i in range(num_graphs):
+        label = i % num_classes
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        p = 0.15 + 0.3 * label / max(1, num_classes - 1)
+        mask = rng.uniform(size=(n, n)) < p
+        np.fill_diagonal(mask, False)
+        r, c = np.where(mask | mask.T)
+        x = rng.normal(size=(n, feat_dim)).astype(np.float32)
+        g = add_self_loops(from_coo(np.stack([r, c]), num_nodes=n, x=x,
+                                    meta={"num_classes": num_classes}))
+        graphs.append(g.replace(
+            y=torch.full((g.n_pad,), label, dtype=torch.int32)))
+        labels.append(label)
+    return graphs, np.asarray(labels, np.int32)

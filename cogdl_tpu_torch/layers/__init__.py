@@ -3,6 +3,7 @@ from .deepergcn_layer import GENConv, ResGNNLayer
 from .gat_layer import GATLayer
 from .gcn_layer import GCNLayer
 from .gcnii_layer import GCNIILayer
+from .gin_layer import GINLayer
 from .mixhop_layer import MixHopLayer
 from .mlp import MLP
 from .sage_layer import SAGELayer
@@ -12,6 +13,6 @@ from .sgc_layer import SGCLayer
 from .utils import CDense, MaskedBatchNorm, get_activation
 
 __all__ = ["APPNPProp", "GENConv", "ResGNNLayer", "GATLayer", "GCNLayer",
-           "GCNIILayer", "MixHopLayer", "MLP", "SAGELayer", "SAINTLayer",
-           "SELayer", "SGCLayer", "CDense", "MaskedBatchNorm",
+           "GCNIILayer", "GINLayer", "MixHopLayer", "MLP", "SAGELayer",
+           "SAINTLayer", "SELayer", "SGCLayer", "CDense", "MaskedBatchNorm",
            "get_activation"]

@@ -6,8 +6,10 @@ full-batch node-classification models ``gcnii``, ``appnp`` (alias
 ``ppnp``), ``mixhop``, ``sgc``, ``mlp``, ``deepergcn``, ``drgcn``,
 ``drgat``, ``sign``, ``dropedge_gcn``, ``revgcn``, ``revgat``, ``revgen``,
 ``grand``, ``pprgo``, ``moe_gcn``, ``robustgcn``, ``gnnguard_gcn``,
-``gdc_gcn``, ``actgcn`` and ``autognn`` are ported so far; every other name
-of the JAX registry waits in ROADMAP.md §1 ("Modules to port").
+``gdc_gcn``, ``actgcn``, ``autognn``, ``disengcn`` and ``srgcn``, and the
+graph classification models ``gin``, ``sortpool`` and ``diffpool``, are
+ported so far; every other name of the JAX registry waits in ROADMAP.md §1
+("Modules to port").
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "gdc_gcn": "cogdl_tpu_torch.models.nn.gdc_gcn.GDCGCN",
     "actgcn": "cogdl_tpu_torch.models.nn.actgcn.ActGCN",
     "autognn": "cogdl_tpu_torch.models.nn.autognn.AutoGNN",
+    "disengcn": "cogdl_tpu_torch.models.nn.disengcn.DisenGCN",
+    "srgcn": "cogdl_tpu_torch.models.nn.srgcn.SRGCN",
+    "gin": "cogdl_tpu_torch.models.nn.gin.GIN",
+    "sortpool": "cogdl_tpu_torch.models.nn.sortpool.SortPool",
+    "diffpool": "cogdl_tpu_torch.models.nn.diffpool.DiffPool",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 

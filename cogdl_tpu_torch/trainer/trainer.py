@@ -1,7 +1,8 @@
 """Training runtime — the port of ``cogdl_tpu/trainer/trainer.py``.
 
-``Trainer.run(wrapper, graph)`` moves the graph to the device, lets the
-wrapper prepare it, initialises the model from a seeded generator and runs
+``Trainer.run(wrapper, graph)`` moves the graph to the device (for a
+multi-graph task, ``graph`` None, the wrapper moves the batches it holds:
+``wrapper.to_device``), lets the wrapper prepare it, initialises the model from a seeded generator and runs
 the epoch loop: one ``train_step`` per batch, evaluation every
 ``eval_step`` epochs, early stopping on the wrapper's monitor, the
 ``nan_guard`` rollback, and a final evaluation on the best parameters.
@@ -198,7 +199,16 @@ class Trainer:
     def run(self, wrapper, graph) -> Dict[str, Any]:
         cfg = self.cfg
         device = resolve_device(cfg.device)
-        graph = graph.to(device)
+        if graph is None:
+            # a multi-graph task (graph classification): the wrapper holds
+            # its batches and moves them to the device itself
+            if not hasattr(wrapper, "to_device"):
+                raise ValueError(
+                    f"Trainer.run got no graph, and {type(wrapper).__name__} "
+                    "holds no batches of its own (to_device)")
+            wrapper.to_device(device)
+        else:
+            graph = graph.to(device)
         if hasattr(wrapper, "prepare_graph"):
             graph = wrapper.prepare_graph(graph)
         model = wrapper.model

@@ -2,7 +2,8 @@
 owns the task-specific pieces (data preparation, loss, evaluation); the
 Trainer stays task-agnostic. Full-batch node classification and its
 sampled forms are ported so far: neighbor sampling on the host and on the
-device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); the rest
+device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); and graph
+classification over union batches (``graph_classification``); the rest
 wait in ROADMAP.md §1."""
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "graphsaint":
         "cogdl_tpu_torch.wrappers.sampled_node_classification."
         "GraphSAINTWrapper",
+    "graph_classification":
+        "cogdl_tpu_torch.wrappers.graph_classification.GraphClfWrapper",
 }
 
 # model name → default wrapper
@@ -43,7 +46,9 @@ DEFAULT_WRAPPER = {
     "robustgcn": "node_classification",
     "gnnguard_gcn": "node_classification",
     "gdc_gcn": "node_classification", "actgcn": "node_classification",
-    "autognn": "node_classification",
+    "autognn": "node_classification", "disengcn": "node_classification",
+    "srgcn": "node_classification", "gin": "graph_classification",
+    "sortpool": "graph_classification", "diffpool": "graph_classification",
 }
 
 

@@ -11,6 +11,11 @@ from cogdl_tpu_torch import bench
 from cogdl_tpu_torch.ops import cache_propagation
 from cogdl_tpu_torch.ops.cuda import SCHEDULE_KEYS
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 SMALL = ["--device", "cpu", "--nodes", "2000", "--avg-degree", "10",
          "--steps", "2", "--warmup", "1", "--repeats", "1"]

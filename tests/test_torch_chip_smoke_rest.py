@@ -15,6 +15,11 @@ from cogdl_tpu_torch.experiments import experiment
 from cogdl_tpu_torch.ops import cuda as ops_cuda
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 CPU = torch.device("cpu")
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",

@@ -919,6 +919,11 @@ from cogdl_tpu_torch.ops.cuda.segment_kernels import (  # noqa: E402
     GAT_MODES,
     gat_pass_reference,
 )
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 
 def _gat_tables(n, H, D, rng):

@@ -35,6 +35,11 @@ from cogdl_tpu_torch.wrappers.sampled_node_classification import (
     DeviceSampledNodeClfWrapper,
     GraphSAINTWrapper,
 )
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 on both sides over identical blocks and weights: the dense layers and
 # the reshape-reduces sum in other orders. Forward 1e-5; grads 1e-4 (sums
@@ -399,9 +404,9 @@ def test_subgraph_wrappers_resolve_and_train_an_epoch(name):
 
 def test_an_unported_wrapper_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        fetch_wrapper("graph_classification")
+        fetch_wrapper("heterogeneous_gnn")
     with pytest.raises(ValueError, match="not yet ported"):
-        train("sbm", "graphsage", wrapper="graph_classification", epochs=1,
+        train("sbm", "graphsage", wrapper="heterogeneous_gnn", epochs=1,
               device="cpu")
 
 

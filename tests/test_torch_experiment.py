@@ -12,6 +12,11 @@ import torch
 from cogdl_tpu.experiments import experiment as j_experiment
 from cogdl_tpu_torch import experiment
 from cogdl_tpu_torch.options import main, parse_args_and_kwargs
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # both packages train the same GCN on the same sbm graph from different

@@ -37,6 +37,11 @@ from cogdl_tpu_torch.ops.cuda import (
 )
 from cogdl_tpu_torch.ops.cuda.segment_kernels import dropout_keep_reference
 from cogdl_tpu_torch.utils.evaluator import masked_cross_entropy
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # plain ops: the same fp32 arithmetic, summed in another order
 OPS_RTOL, OPS_ATOL = 1e-5, 1e-6

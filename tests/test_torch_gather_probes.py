@@ -32,6 +32,11 @@ from cogdl_tpu_torch.ops.cuda.gather_kernels import (
     window_rows,
 )
 from cogdl_tpu_torch.scripts import microbench_gather as mg
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, T = 4096, 1024

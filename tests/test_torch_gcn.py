@@ -21,6 +21,11 @@ from cogdl_tpu_torch.layers import GCNLayer
 from cogdl_tpu_torch.models import build_model, load_jax_params
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
 from cogdl_tpu_torch.utils.evaluator import masked_cross_entropy
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 forward through two dense layers and two SpMMs, summed in another
 # order: 1e-5 relative on O(1) logits; gradients accumulate over ~60 train
@@ -149,4 +154,4 @@ def test_init_follows_flax_lecun_normal():
 
 def test_build_model_unported_names():
     with pytest.raises(ValueError, match="not yet ported"):
-        build_model("gin", in_features=4, out_features=2)
+        build_model("han", in_features=4, out_features=2)

@@ -25,6 +25,11 @@ from cogdl_tpu_torch.ops.cuda.segment_kernels import (
     spmm_csr,
     spmm_csr_reference,
 )
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 sums in another order (XLA segment ops / Pallas one-hot matmuls vs
 # torch index_add): relative 1e-5 of O(1) values

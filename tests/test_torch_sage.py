@@ -23,6 +23,11 @@ from cogdl_tpu_torch.layers import SAGELayer
 from cogdl_tpu_torch.models import build_model, load_jax_params
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
 from cogdl_tpu_torch.utils.evaluator import masked_cross_entropy
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 on both sides, dropout 0; the two packages sum a row's neighbours and
 # a dense layer's products in different orders: 1e-5 relative on O(1)-O(10)

@@ -25,6 +25,11 @@ from cogdl_tpu_torch.trainer.trainer import (
     build_optimizer,
 )
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 losses after up to 20 optimizer steps from identical weights: the
 # per-step differences (1e-6 relative) compound through Adam's normalised

@@ -43,6 +43,11 @@ from cogdl_tpu_torch.layers import (
 )
 from cogdl_tpu_torch.models import load_jax_params
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 on both sides with the same weights, summed in other orders: forward
 # 1e-5, grads 1e-4 (the tolerances of the port's other layer tests)

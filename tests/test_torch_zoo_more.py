@@ -42,6 +42,11 @@ from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 from cogdl_tpu_torch.wrappers.sampled_node_classification import (
     reads_kernel_structure,
 )
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 on both sides with the same weights, summed in other orders: logits
 # 1e-5, grads 1e-4 (tests/test_torch_zoo_models.py); per-epoch losses after

@@ -17,6 +17,11 @@ from cogdl_tpu.models import SUPPORTED_MODELS as JAX_MODELS
 from cogdl_tpu_torch.models import SUPPORTED_MODELS, build_model
 from cogdl_tpu_torch.ops.cuda import prepare_spmm
 from cogdl_tpu_torch.wrappers import DEFAULT_WRAPPER
+from test_torch_chip_smoke import one_cpu_thread  # noqa: F401  (fixture)
+
+# every test on one torch thread (a measure of Tier-1 time only; see
+# test_torch_chip_smoke.one_cpu_thread)
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # fp32 on both sides, the same inputs, sums in other orders
 RTOL, ATOL = 1e-5, 1e-6
