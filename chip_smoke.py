@@ -51,6 +51,12 @@ classification: K1 over the structure of a union batch of 128 small graphs
 at F = 8, 32, 37 and 64 and on the adversarial structures at F = 8 and 37,
 GIN, SortPool and DiffPool through ``experiment()`` on an NCI1-scale
 ``random-graphs`` set with exact launch counts, card against CPU logits,
+and test accuracy against the JAX package's; then the heterogeneous
+family on an ACM-scale ``hetero-sbm`` set (7,500 nodes, 1,870 features, two
+metapath graphs of about 1.09 M edges): K1 at F=1870 and K3 at (8, 8) over
+a metapath graph's structure, HAN, GTN, RGCN, CompGCN (at 3,025 nodes) and
+Simple-HGN through ``experiment()`` with exact launch counts (K3 for HAN,
+K1 for GTN, none for the rest), card against CPU logits at 1,500 nodes,
 and test accuracy against the JAX package's. Prints one JSON line of
 kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
@@ -87,6 +93,7 @@ from cogdl_tpu_torch.data.graph import add_self_loops, from_coo, sym_norm
 from cogdl_tpu_torch.data.sampling import bfs_partition, graph_csr
 from cogdl_tpu_torch.datasets.dataset import Dataset
 from cogdl_tpu_torch.datasets.synthetic import (
+    hetero_sbm_graph,
     powerlaw_graph,
     powerlaw_graph_device,
     random_graphs_dataset,
@@ -117,6 +124,7 @@ from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
 from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
 from cogdl_tpu_torch.wrappers.graph_classification import GraphClfWrapper
+from cogdl_tpu_torch.wrappers.heterogeneous import HeterogeneousGNNWrapper
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 from cogdl_tpu_torch.wrappers.sampled_node_classification import (
     ClusterNodeClfWrapper,
@@ -548,7 +556,8 @@ def _logit_parity(tag: str, name: str, device: torch.device, num_nodes: int,
             logits[dev.type] = m(prepared, training=False)[:num_nodes].cpu()
     ref, out = logits["cpu"], logits[device.type]
     diff = float((out - ref).abs().max())
-    print(f"[{tag}] max |logits_{device.type} - logits_cpu| = {diff:.3g} "
+    print(f"[{tag}] max |logits_{device.type} - logits_cpu| = {diff:.3g}, "
+          f"max |logits_cpu| = {float(ref.abs().max()):.3g} "
           f"({num_nodes} nodes, {time.perf_counter() - t0:.1f} s)")
     if not torch.allclose(out, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
         raise AssertionError(f"card {name} logits differ from CPU logits by "
@@ -643,16 +652,19 @@ def gat_single_check(name: str, base, back, sched, seed):
 
 
 def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
-                           iters: int = 20, shapes=GAT_SHAPES):
+                           iters: int = 20, shapes=GAT_SHAPES, graph=None,
+                           label: str = ""):
     """K3 against gat_pass_reference in each mode at each ``(heads,
     head_dim)`` of ``shapes`` (the GAT main path's two by default), with
     attention dropout off and at 0.6 (:func:`gat_single_check`):
     every output element within ``KERNEL_ATOL + KERNEL_RTOL·Σ|terms|``, the
     keep masks equal bit for bit, repeat calls and both schedules bit for
     bit. Times each mode and shape at dropout 0.6 (the training passes),
-    the kernel the wrapper chooses and each by name. Returns one
-    measurement entry per mode and shape."""
-    g = kernel_graph(num_nodes, device)
+    the kernel the wrapper chooses and each by name, with the host held
+    out too (``device_ms``). Over ``graph``'s structure when given (its
+    entries' names end in ``label``), else the main path's graph's.
+    Returns one measurement entry per mode and shape."""
+    g = kernel_graph(num_nodes, device) if graph is None else graph
     ex = g.extras
     gen = torch.Generator(device=device).manual_seed(1)
     seed = torch.tensor([123456789], dtype=torch.int64, device=device)
@@ -666,7 +678,7 @@ def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
             chunks, cross_rows = schedule_stats(sched)
             back = () if mode == "fwd" else (t["dagg"], t["dden"])
             base = (mode, ptr, idx, orig, t["sd"], t["ss"], t["smax"], t["h2"])
-            name = f"gat_pass[{mode},H={heads},D={head_dim}]"
+            name = f"gat_pass[{mode},H={heads},D={head_dim}{label}]"
             err, max_abs, per_call, ran = gat_single_check(name, base, back,
                                                            sched, seed)
             if not err <= 1.0:
@@ -684,12 +696,14 @@ def phase_gat_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
             b_ms, b_by = gat_bound_ms(mode, g.n_pad, nnz, x_rows, own_rows,
                                       heads, head_dim, drop=True)
             ms = time_ms(run, device, iters)
+            device_ms, host_us = time_device_ms(run, device, iters)
             entry = {
                 "name": name, "route": "cuda", "source": GAT_SOURCE,
                 "replaces": GAT_REPLACES, "launches": None,
                 "case": ["gat_pass", mode, heads, head_dim],
                 "max_abs_err": max_abs, "err_over_tol": err,
-                "ms": ms,
+                "ms": ms, "device_ms": device_ms,
+                "host_us_per_call": host_us,
                 "plain_ms": time_ms(
                     lambda: sk.gat_pass_reference(*base, *back, **kw), device,
                     max(iters // 4, 1), warmup=1),
@@ -3930,7 +3944,8 @@ def phase_graph_parity(device: torch.device, graph_set=GRAPH_SET,
         ref, got = logits["cpu"], logits[device.type]
         out[model] = float((got - ref).abs().max())
         print(f"[graph-parity] {model} max |logits_{device.type} - "
-              f"logits_cpu| = {out[model]:.3g} ({ref.shape[0]} graphs)")
+              f"logits_cpu| = {out[model]:.3g}, max |logits_cpu| = "
+              f"{float(ref.abs().max()):.3g} ({ref.shape[0]} graphs)")
         if not torch.allclose(got, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
             raise AssertionError(f"card {model} logits differ from CPU "
                                  f"logits by {out[model]}")
@@ -3971,6 +3986,279 @@ def phase_graph_quality(device: torch.device, models=tuple(GRAPH_KW),
     short = {m: a for m, a in accs.items() if a < bars[m]}
     if short:
         raise AssertionError(f"graph-quality: test_acc below the JAX "
+                             f"package's less {ZOO_QUALITY_MARGIN}: {short}")
+    return accs
+
+
+# ---------------------------------------------------------------------------
+# The heterogeneous family (ROADMAP item 13b): HAN, GTN, RGCN, CompGCN and
+# Simple-HGN on the heterogeneous_gnn wrapper
+# ---------------------------------------------------------------------------
+
+# ACM as the HAN paper uses it (Wang et al., "Heterogeneous Graph Attention
+# Network", WWW 2019; reference han_data.py): 1,870 features, 3 classes and
+# the two metapaths PAP and PLP. 7,500 nodes give about ACM's metapath
+# edges (PAP + PLP = 2,240,042): 1,086,268 and 1,086,132 with the self
+# loops, rows of at most 194 edges; the union graph 2,157,400 edges
+# (n_pad 8,192, e_pad 2,621,440)
+HETERO_SET = {"num_nodes": 7500, "num_classes": 3, "feat_dim": 1870,
+              "num_metapaths": 2, "seed": 0}
+# CompGCN's first layer keeps [e_pad, F_in] tensors over the union graph
+# (source rows, relations, messages, weighted messages): 19.6 GB each at
+# 7,500 nodes, more than 80 GB with four alive. It runs at ACM's 3,025
+# nodes (e_pad 393,216, 2.9 GB each); the other four at HETERO_SET's
+HETERO_COMPGCN_NODES = 3025
+# each model at its BEST_CONFIGS width (han, gtn, simple_hgn) or its
+# default (rgcn, compgcn, with the set's two relations), through
+# experiment() with use_best_config=True
+HETERO_KW = {
+    "han": {"hidden_size": 8, "nhead": 8, "dropout": 0.6},
+    "gtn": {"hidden_size": 64, "num_channels": 2, "num_gt_layers": 2},
+    "rgcn": {"hidden_size": 64, "num_layers": 2, "num_relations": 2},
+    "compgcn": {"hidden_size": 64, "num_relations": 2},
+    "simple_hgn": {"hidden_size": 64, "nhead": 8, "edge_dim": 64,
+                   "num_layers": 2},
+}
+HETERO_EPOCHS = 5
+# HAN's GAT layers over each metapath graph: 8 heads of 8
+HETERO_GAT_SHAPES = ((8, 8),)
+HETERO_PARITY_NODES = 1500
+# The quality runs: the registry's default hetero-sbm (300 nodes, 16
+# features), each model at its defaults (RGCN and CompGCN at the set's two
+# relations), 100 epochs, over seeds 0 to HETERO_QUALITY_SEEDS - 1
+HETERO_QUALITY_SEEDS = 4
+HETERO_QUALITY_EPOCHS = 100
+HETERO_QUALITY_KW = {"rgcn": {"num_relations": 2},
+                     "compgcn": {"num_relations": 2}}
+# The JAX package's own test accuracy at those settings, the mean over the
+# same seeds, on the CPU, each from
+#   JAX_PLATFORMS=cpu python -c "from cogdl_tpu.experiments import train; \
+#       print([train('hetero-sbm', MODEL, seed=s, epochs=100, **KW) \
+#              ['test_acc'] for s in range(4)])"
+# run from the repo root, KW from HETERO_QUALITY_KW; the card's bar is each
+# less ZOO_QUALITY_MARGIN
+HETERO_JAX_ACC = {"han": 0.971667, "gtn": 0.981667, "rgcn": 0.995000,
+                  "compgcn": 0.996667, "simple_hgn": 0.983333}
+
+
+@functools.lru_cache(maxsize=2)
+def hetero_dataset(items) -> Dataset:
+    """The ``hetero-sbm`` set of ``dict(items)`` on the host, built once for
+    the phases that share it."""
+    return Dataset.from_graph(hetero_sbm_graph(**dict(items)),
+                              name="hetero-sbm")
+
+
+def _hetero_items(hetero_set, num_nodes=None):
+    if num_nodes is not None:
+        hetero_set = dict(hetero_set, num_nodes=num_nodes)
+    return tuple(sorted(hetero_set.items()))
+
+
+def _hetero_expected(model: str, kw, steps: int, evals: int, on_card: bool,
+                     feat: int = HETERO_SET["feat_dim"],
+                     metapaths: int = HETERO_SET["num_metapaths"]):
+    """K1 and K3 launches of ``model``'s run at ``kw``, by counted wrapper
+    and case, over ``metapaths`` metapath graphs. HAN: each layer runs K3's
+    fwd, dsd and dsrc at ``(nhead, hidden_size)`` over each metapath graph
+    a train step, fwd an evaluation. GTN: each of ``num_channels`` channels
+    runs ``num_gt_layers`` mixtures of a K1 over each relation graph at the
+    input width ``feat``, forward over the CSR a step and an evaluation;
+    the first layer's input (the features) takes no gradient, so only the
+    later layers run the CSC on a step. RGCN, CompGCN and Simple-HGN:
+    none."""
+    if not on_card or model not in ("han", "gtn"):
+        return {}
+    if model == "han":
+        layers = kw.get("num_layers", 1) * metapaths
+        shape = (kw["nhead"], kw["hidden_size"])
+        expected = collections.Counter(
+            {(m,) + shape: layers * steps for m in sk.GAT_MODES})
+        expected[("fwd",) + shape] += layers * evals
+        return {"gat_pass": +expected}
+    channels, gt_layers = kw["num_channels"], kw.get("num_gt_layers", 2)
+    return {"spmm_csr": +collections.Counter({
+        ("csr", feat): channels * gt_layers * metapaths * (steps + evals),
+        ("csc", feat): channels * (gt_layers - 1) * metapaths * steps})}
+
+
+def phase_hetero_kernel_check(device: torch.device, hetero_set=HETERO_SET,
+                              iters: int = 20):
+    """K1 over the first metapath graph of the set's structure (as the
+    wrapper prepares it) in both directions at the input width, checked and
+    timed by :func:`_k1_entry`; K3 at HAN's (8, 8) over the same structure
+    in its three modes at attention dropout 0 and 0.6
+    (:func:`phase_gat_kernel_check`). Returns the measurement entries."""
+    ds = hetero_dataset(_hetero_items(hetero_set))
+    g = prepare_spmm(ds.graph.extras["metapath_graphs"][0].to(device))
+    gen = torch.Generator(device=device).manual_seed(11)
+    feat = hetero_set["feat_dim"]
+    entries = [_k1_entry(f"spmm_csr[{'csr' if d == 'fw' else 'csc'},F={feat},"
+                         f"metapath]", g.extras, d, feat, gen, device, iters)
+               for d in ("fw", "bw")]
+    for e, d in zip(entries, ("fw", "bw")):
+        ptr = g.extras[f"spmm_{d}_ptr"]
+        e["max_row_nnz"] = int((ptr[1:] - ptr[:-1]).max())
+        print(f"[hetero-kernel] {json.dumps(e)}")
+    return entries + phase_gat_kernel_check(
+        device, iters=iters, shapes=HETERO_GAT_SHAPES, graph=g,
+        label=",metapath")
+
+
+def _hetero_step_profile(model: str, ds, device: torch.device):
+    """``torch.profiler``'s view (:func:`profile_window`) of one train step
+    of ``model`` at :data:`HETERO_KW` on the heterogeneous wrapper over
+    ``ds``'s graph on ``device``, after two steps of warm-up."""
+    net = build_model(model, in_features=ds.num_features,
+                      out_features=ds.num_classes, **HETERO_KW[model])
+    wrapper = HeterogeneousGNNWrapper(net)
+    wrapper.init(torch.Generator().manual_seed(0), ds.graph)
+    net.to(device)
+    prepared = wrapper.prepare_graph(ds.graph.to(device))
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        wrapper.loss(prepared, gen).backward()
+        opt.step()
+        _sync(device)
+
+    step()
+    step()
+    return profile_window(step, device)
+
+
+def phase_hetero_main_path(device: torch.device, hetero_set=HETERO_SET,
+                           compgcn_nodes: int = HETERO_COMPGCN_NODES,
+                           epochs: int = HETERO_EPOCHS,
+                           models=tuple(HETERO_KW)):
+    """Each model of ``models`` at :data:`HETERO_KW` through
+    ``experiment()`` (``use_best_config=True``) on the ``hetero-sbm`` set
+    of ``hetero_set`` (CompGCN at ``compgcn_nodes``), ``epochs`` epochs
+    with an evaluation each and one more at the end: the exact K1 and K3
+    launches of :func:`_hetero_expected` and no other counted kernel, a
+    finite loss, ``train_step_ms``, ``eval_ms``, the peak of allocated card
+    memory, ``torch.profiler``'s view of one more step
+    (:func:`_hetero_step_profile`) and the run's seconds. Returns each
+    run's record and the launches by case summed over the runs."""
+    on_card = device.type == "cuda"
+    info, launches_by = {}, collections.defaultdict(collections.Counter)
+    for model in models:
+        nodes = (compgcn_nodes if model == "compgcn"
+                 else hetero_set["num_nodes"])
+        ds = hetero_dataset(_hetero_items(hetero_set, nodes))
+        t0 = time.perf_counter()
+        sk.reset_launch_counts()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        results = experiment(dataset=ds, model=model, use_best_config=True,
+                             epochs=epochs, patience=epochs + 1, eval_step=1,
+                             seed=0, device=str(device), **HETERO_KW[model])
+        (res,) = next(iter(results.values()))
+        counts = _launch_counts()
+        expected = _hetero_expected(model, HETERO_KW[model], epochs,
+                                    epochs + 1, on_card,
+                                    hetero_set["feat_dim"],
+                                    hetero_set["num_metapaths"])
+        if counts != expected:
+            raise AssertionError(f"hetero-main {model} ({epochs} steps, "
+                                 f"{epochs + 1} evaluations) launched "
+                                 f"{counts}; expected {expected}")
+        if not np.isfinite(res["train_loss"]):
+            raise AssertionError(f"hetero-main {model}: loss not finite: "
+                                 f"{res}")
+        for kernel, by_case in counts.items():
+            launches_by[kernel].update(by_case)
+        info[model] = {
+            "nodes": nodes, "edges": ds.graph.num_edges,
+            "train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "peak_hbm_bytes": (torch.cuda.max_memory_allocated(device)
+                               if on_card else None),
+            "train_loss": res["train_loss"], "test_acc": res["test_acc"],
+            "epochs": epochs,
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()},
+            "profile": _hetero_step_profile(model, ds, device)}
+        info[model]["seconds"] = time.perf_counter() - t0
+    print(f"[hetero-main] {json.dumps(info)}")
+    info["launches_by"] = {k: dict(v) for k, v in launches_by.items()}
+    return info
+
+
+def phase_hetero_parity(device: torch.device, hetero_set=HETERO_SET,
+                        num_nodes: int = HETERO_PARITY_NODES,
+                        models=tuple(HETERO_KW)):
+    """Each model's logits on ``device`` (K1 for GTN, K3 for HAN over the
+    metapath graphs the wrapper prepares) against the CPU's (their plain
+    versions over bare graphs), the same weights, dropout off, the real
+    nodes, on the set at ``num_nodes`` nodes and its full width: the
+    largest difference within ``LOGIT_ATOL + LOGIT_RTOL·max|logits|``.
+    The bound scales with the largest logit, not each logit's own: GTN
+    propagates unnormalised adjacencies twice, so its hidden rows reach
+    about 4e4 and its logits 1.6e3, and a logit near 0 carries the
+    rounding of those sums (2e-3 apart on the card, where each element's
+    own bound would be 1e-4). Returns each model's largest logit
+    difference and largest logit magnitude."""
+    ds = hetero_dataset(_hetero_items(hetero_set, num_nodes))
+    g = ds.graph
+    out = {}
+    for model in models:
+        kw = dict(HETERO_KW[model], dropout=0.0)
+        if model == "simple_hgn":
+            kw["attn_drop"] = 0.0
+        net = build_model(model, in_features=ds.num_features,
+                          out_features=ds.num_classes, **kw)
+        HeterogeneousGNNWrapper(net).init(torch.Generator().manual_seed(0), g)
+        t0 = time.perf_counter()
+        logits = []
+        for dev in (torch.device("cpu"), device):
+            m = copy.deepcopy(net).to(dev)
+            prepared = HeterogeneousGNNWrapper(m).prepare_graph(g.to(dev))
+            with torch.no_grad():
+                logits.append(m(prepared, prepared.x, training=False)[
+                    :g.num_nodes].cpu())
+        ref, got = logits
+        out[model] = {"max_abs_diff": float((got - ref).abs().max()),
+                      "max_abs_logit": float(ref.abs().max())}
+        print(f"[hetero-parity] {model} max |logits_{device.type} - "
+              f"logits_cpu| = {out[model]['max_abs_diff']:.3g}, max "
+              f"|logits_cpu| = {out[model]['max_abs_logit']:.3g} "
+              f"({g.num_nodes} nodes, {time.perf_counter() - t0:.1f} s)")
+        if not (out[model]["max_abs_diff"] <= LOGIT_ATOL + LOGIT_RTOL *
+                out[model]["max_abs_logit"]):
+            raise AssertionError(f"card {model} logits differ from CPU "
+                                 f"logits by {out[model]['max_abs_diff']}, "
+                                 f"logits up to "
+                                 f"{out[model]['max_abs_logit']}")
+    return out
+
+
+def phase_hetero_quality(device: torch.device, models=tuple(HETERO_KW),
+                         seeds: int = HETERO_QUALITY_SEEDS,
+                         epochs: int = HETERO_QUALITY_EPOCHS):
+    """Each model's mean test accuracy on the default ``hetero-sbm`` over
+    seeds 0 to ``seeds - 1`` at its defaults (:data:`HETERO_QUALITY_KW`)
+    for ``epochs`` epochs, held to the JAX package's own accuracy at the
+    same settings less :data:`ZOO_QUALITY_MARGIN`
+    (:data:`HETERO_JAX_ACC`)."""
+    accs, seconds = {}, {}
+    for m in models:
+        t0 = time.perf_counter()
+        results = experiment(dataset="hetero-sbm", model=m, epochs=epochs,
+                             seed=list(range(seeds)), device=str(device),
+                             **HETERO_QUALITY_KW.get(m, {}))
+        seconds[m] = round(time.perf_counter() - t0, 1)
+        (runs,) = results.values()
+        accs[m] = float(np.mean([r["test_acc"] for r in runs]))
+    print(f"[hetero-quality] test_acc {json.dumps(accs)} (JAX package "
+          f"{json.dumps(HETERO_JAX_ACC)}, margin {ZOO_QUALITY_MARGIN}); "
+          f"seconds {json.dumps(seconds)}")
+    short = {m: a for m, a in accs.items()
+             if a < HETERO_JAX_ACC[m] - ZOO_QUALITY_MARGIN}
+    if short:
+        raise AssertionError(f"hetero-quality: test_acc below the JAX "
                              f"package's less {ZOO_QUALITY_MARGIN}: {short}")
     return accs
 
@@ -4106,6 +4394,16 @@ def main(argv=None) -> int:
         e["launches"] = graph_info["launches_by"].get(kernel, {}).get(
             tuple(case), 0)
     entries += graph_entries
+    # the heterogeneous family
+    hetero_entries = timed(phase_hetero_kernel_check, device)
+    hetero_info = timed(phase_hetero_main_path, device)
+    timed(phase_hetero_parity, device)
+    hetero_acc = timed(phase_hetero_quality, device)
+    for e in hetero_entries:
+        kernel, *case = e["case"]
+        e["launches"] = hetero_info["launches_by"].get(kernel, {}).get(
+            tuple(case), 0)
+    entries += hetero_entries
     for e in entries:
         kernel, *case = e.pop("case", [None])
         for key, run in (("launches_host_sampled", host_info),
@@ -4113,7 +4411,8 @@ def main(argv=None) -> int:
                          ("launches_saint", saint_info),
                          ("launches_zoo", zoo_info),
                          ("launches_rest_zoo", rest_info),
-                         ("launches_graph", graph_info)):
+                         ("launches_graph", graph_info),
+                         ("launches_hetero", hetero_info)):
             e[key] = run["launches_by"].get(kernel, {}).get(tuple(case), 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
@@ -4172,6 +4471,12 @@ def main(argv=None) -> int:
                       for k, v in graph_info.items() if k != "launches_by")
           + "; graph-quality test_acc "
           + ", ".join(f"{k} {v:.4f}" for k, v in graph_acc.items())
+          + "; heterogeneous train_step_ms (eval_ms, peak GB) "
+          + ", ".join(f"{k} {v['train_step_ms']:.3f} ({v['eval_ms']:.3f}, "
+                      f"{v['peak_hbm_bytes'] / 1e9:.2f})"
+                      for k, v in hetero_info.items() if k != "launches_by")
+          + "; hetero-quality test_acc "
+          + ", ".join(f"{k} {v:.4f}" for k, v in hetero_acc.items())
           + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))

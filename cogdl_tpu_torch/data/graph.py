@@ -175,7 +175,10 @@ class Graph:
         return self.replace(meta=tuple(sorted(d.items())))
 
     def to(self, device) -> "Graph":
-        """The same graph with every tensor (extras included) on ``device``."""
+        """The same graph with every tensor on ``device``, extras included:
+        a tensor, a ``Graph`` or a tuple of them (a heterogeneous graph's
+        ``metapath_graphs``). A value that two keys share is moved once and
+        stays shared (``metapath_graphs is relation_graphs``)."""
         device = torch.device(device)
         moved = {}
         for f in dataclasses.fields(self):
@@ -183,7 +186,15 @@ class Graph:
             if isinstance(v, torch.Tensor):
                 moved[f.name] = v.to(device)
         if self.extras:
-            moved["extras"] = {k: v.to(device) for k, v in self.extras.items()}
+            done = {}
+
+            def move(v):
+                if id(v) not in done:
+                    done[id(v)] = (tuple(move(u) for u in v)
+                                   if isinstance(v, tuple) else v.to(device))
+                return done[id(v)]
+
+            moved["extras"] = {k: move(v) for k, v in self.extras.items()}
         return self.replace(**moved)
 
     def __repr__(self) -> str:  # short, shape-centric

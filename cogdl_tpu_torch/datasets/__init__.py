@@ -1,24 +1,46 @@
 """Dataset registry — the port of ``cogdl_tpu/datasets/__init__.py`` for the
-offline synthetic names. ``build_dataset(name)`` returns a
-:class:`Dataset` holding one CPU graph, or for ``random-graphs`` a list of
-small CPU graphs with their labels; the trainer (or, for a list, the graph
-classification wrapper) moves them to the device.
+offline synthetic names and the heterogeneous loaders. ``build_dataset(name)``
+returns a :class:`Dataset` holding one CPU graph, or for ``random-graphs`` a
+list of small CPU graphs with their labels; the trainer (or, for a list, the
+graph classification wrapper) moves them to the device.
+
+The loaders of :data:`SUPPORTED_DATASETS` read local files under
+``$COGDL_TPU_DATA/<name>/raw`` (default ``~/.cogdl_tpu``), as the JAX
+package's do, and raise ``FileNotFoundError`` with the files to place there;
+nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import importlib
+import os
 import re
+from typing import Dict
 
 from .dataset import Dataset
 
+DATA_ROOT = os.environ.get("COGDL_TPU_DATA",
+                           os.path.expanduser("~/.cogdl_tpu"))
+
+SUPPORTED_DATASETS: Dict[str, str] = {
+    # heterogeneous GTN/HAN (reference datasets/gtn_data.py, han_data.py)
+    "gtn-acm": "cogdl_tpu_torch.datasets.hetero.build_gtn",
+    "gtn-dblp": "cogdl_tpu_torch.datasets.hetero.build_gtn",
+    "gtn-imdb": "cogdl_tpu_torch.datasets.hetero.build_gtn",
+    "han-acm": "cogdl_tpu_torch.datasets.hetero.build_han",
+    "han-dblp": "cogdl_tpu_torch.datasets.hetero.build_han",
+    "han-imdb": "cogdl_tpu_torch.datasets.hetero.build_han",
+}
+
 OFFLINE_NAMES = ("sbm | sbm-small | sbm-large | powerlaw-<N>[k|m] | "
-                 "random-graphs")
+                 "random-graphs | hetero-sbm")
 
 
 def build_dataset(name: str, **kwargs) -> Dataset:
-    """Resolve a synthetic dataset by name (``sbm``, ``sbm-large``,
-    ``powerlaw-<N>[k|m]``, ``random-graphs``). Other names of the JAX
-    registry are not yet ported and raise."""
+    """Resolve a dataset by name: the synthetic families (``sbm``,
+    ``sbm-large``, ``powerlaw-<N>[k|m]``, ``random-graphs``,
+    ``hetero-sbm``) or a loader of :data:`SUPPORTED_DATASETS`. Other names
+    of the JAX registry are not yet ported and raise."""
     from . import synthetic as syn
 
     if name in ("sbm", "sbm-small"):
@@ -35,6 +57,13 @@ def build_dataset(name: str, **kwargs) -> Dataset:
     if name == "random-graphs":
         graphs, labels = syn.random_graphs_dataset(**kwargs)
         return Dataset.from_graphs(graphs, labels=labels, name=name)
+    if name == "hetero-sbm":
+        return Dataset.from_graph(syn.hetero_sbm_graph(**kwargs), name=name)
+    if name in SUPPORTED_DATASETS:
+        module_path, fn_name = SUPPORTED_DATASETS[name].rsplit(".", 1)
+        fn = getattr(importlib.import_module(module_path), fn_name)
+        return fn(name, root=os.path.join(DATA_ROOT, name), **kwargs)
     raise ValueError(
         f"dataset {name!r} is not yet ported to cogdl_tpu_torch; offline "
-        f"names: {OFFLINE_NAMES} (the rest wait in ROADMAP.md §1)")
+        f"names: {OFFLINE_NAMES}, loaders: {sorted(SUPPORTED_DATASETS)} "
+        "(the rest wait in ROADMAP.md §1)")

@@ -1,8 +1,8 @@
 """Synthetic graph generators — the port of the ``sbm_graph``,
-``powerlaw_graph``, ``powerlaw_graph_device`` and ``random_graphs_dataset``
-parts of ``cogdl_tpu/datasets/synthetic.py``.
+``powerlaw_graph``, ``powerlaw_graph_device``, ``random_graphs_dataset`` and
+``hetero_sbm_graph`` parts of ``cogdl_tpu/datasets/synthetic.py``.
 
-The three host generators draw from ``np.random.default_rng(seed)`` with the
+The four host generators draw from ``np.random.default_rng(seed)`` with the
 same calls in the same order as the JAX package, so the same arguments give
 the same graph in both packages. ``powerlaw_graph_device`` and the features
 of ``powerlaw_graph(device_features=True)`` are drawn on the device from a
@@ -14,7 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..data.graph import Graph, add_self_loops, from_coo, to_undirected
+from ..data.graph import (
+    Graph,
+    add_self_loops,
+    from_coo,
+    pad_to,
+    to_undirected,
+)
 from ..trainer.trainer import resolve_device
 
 
@@ -245,3 +251,54 @@ def random_graphs_dataset(
             y=torch.full((g.n_pad,), label, dtype=torch.int32)))
         labels.append(label)
     return graphs, np.asarray(labels, np.int32)
+
+
+def hetero_sbm_graph(
+    num_nodes: int = 300,
+    num_types: int = 3,
+    num_classes: int = 3,
+    num_metapaths: int = 2,
+    feat_dim: int = 16,
+    seed: int = 0,
+) -> Graph:
+    """Heterogeneous stand-in (ACM/DBLP-style): an undirected sbm graph
+    whose edges each draw a type, kept as the typed union graph
+    (``edge_type``, ``meta["num_relations"]``), and one graph a type with a
+    self loop a node, padded to the union graph's ``n_pad``, in
+    ``extras["metapath_graphs"]`` and ``extras["relation_graphs"]`` (one
+    tuple under both keys), with ``extras["node_type"]``. It drives HAN,
+    GTN, RGCN, CompGCN and Simple-HGN; the JAX package's graph for the same
+    arguments."""
+    base = sbm_graph(num_nodes=num_nodes, num_classes=num_classes,
+                     feat_dim=feat_dim, seed=seed, self_loops=False)
+    rng = np.random.default_rng(seed + 1)
+    node_type = rng.integers(0, num_types, num_nodes)
+    E = base.num_edges
+    etype = rng.integers(0, num_metapaths, E)
+    row = base.row[:E].numpy()
+    col = base.col[:E].numpy()
+    shared_n, shared_e = base.n_pad, base.e_pad
+    metas = []
+    for t in range(num_metapaths):
+        sel = etype == t
+        gm = from_coo(np.stack([row[sel], col[sel]]), num_nodes=num_nodes,
+                      n_pad=shared_n, e_pad=shared_e, bucket=False)
+        # self loops keep isolated nodes sane
+        metas.append(add_self_loops(gm).replace(meta=gm.meta))
+    metas = [pad_to(m, shared_n, max(m.e_pad, shared_e)) for m in metas]
+    nt = np.zeros(shared_n, np.int32)
+    nt[:num_nodes] = node_type
+    g = from_coo(
+        np.stack([row, col]), num_nodes=num_nodes, edge_type=etype,
+        n_pad=shared_n, e_pad=shared_e, bucket=False,
+        x=base.x[:num_nodes], y=base.y[:num_nodes],
+        train_mask=base.train_mask[:num_nodes],
+        val_mask=base.val_mask[:num_nodes],
+        test_mask=base.test_mask[:num_nodes],
+        meta={"num_classes": num_classes, "num_relations": num_metapaths,
+              "name": f"hetero{num_nodes}"},
+    )
+    metas = tuple(metas)
+    return g.replace(extras={"node_type": torch.from_numpy(nt),
+                             "metapath_graphs": metas,
+                             "relation_graphs": metas})

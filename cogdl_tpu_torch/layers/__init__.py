@@ -4,8 +4,10 @@ from .gat_layer import GATLayer
 from .gcn_layer import GCNLayer
 from .gcnii_layer import GCNIILayer
 from .gin_layer import GINLayer
+from .han_layer import HANLayer
 from .mixhop_layer import MixHopLayer
 from .mlp import MLP
+from .rgcn_layer import RGCNLayer
 from .sage_layer import SAGELayer
 from .saint_layer import SAINTLayer
 from .se_layer import SELayer
@@ -13,6 +15,6 @@ from .sgc_layer import SGCLayer
 from .utils import CDense, MaskedBatchNorm, get_activation
 
 __all__ = ["APPNPProp", "GENConv", "ResGNNLayer", "GATLayer", "GCNLayer",
-           "GCNIILayer", "GINLayer", "MixHopLayer", "MLP", "SAGELayer",
-           "SAINTLayer", "SELayer", "SGCLayer", "CDense", "MaskedBatchNorm",
-           "get_activation"]
+           "GCNIILayer", "GINLayer", "HANLayer", "MixHopLayer", "MLP",
+           "RGCNLayer", "SAGELayer", "SAINTLayer", "SELayer", "SGCLayer",
+           "CDense", "MaskedBatchNorm", "get_activation"]

@@ -6,9 +6,10 @@ full-batch node-classification models ``gcnii``, ``appnp`` (alias
 ``ppnp``), ``mixhop``, ``sgc``, ``mlp``, ``deepergcn``, ``drgcn``,
 ``drgat``, ``sign``, ``dropedge_gcn``, ``revgcn``, ``revgat``, ``revgen``,
 ``grand``, ``pprgo``, ``moe_gcn``, ``robustgcn``, ``gnnguard_gcn``,
-``gdc_gcn``, ``actgcn``, ``autognn``, ``disengcn`` and ``srgcn``, and the
-graph classification models ``gin``, ``sortpool`` and ``diffpool``, are
-ported so far; every other name of the JAX registry waits in ROADMAP.md §1
+``gdc_gcn``, ``actgcn``, ``autognn``, ``disengcn`` and ``srgcn``, the
+graph classification models ``gin``, ``sortpool`` and ``diffpool``, and the
+heterogeneous models ``han``, ``gtn``, ``rgcn``, ``compgcn`` and
+``simple_hgn``, are ported so far; every other name of the JAX registry waits in ROADMAP.md §1
 ("Modules to port").
 """
 
@@ -21,7 +22,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch.nn import LayerNorm, Module
+from torch.nn import Embedding, LayerNorm, Module
 
 SUPPORTED_MODELS: Dict[str, str] = {
     "gcn": "cogdl_tpu_torch.models.nn.gcn.GCN",
@@ -56,6 +57,11 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "gin": "cogdl_tpu_torch.models.nn.gin.GIN",
     "sortpool": "cogdl_tpu_torch.models.nn.sortpool.SortPool",
     "diffpool": "cogdl_tpu_torch.models.nn.diffpool.DiffPool",
+    "rgcn": "cogdl_tpu_torch.models.nn.rgcn.RGCN",
+    "compgcn": "cogdl_tpu_torch.models.nn.compgcn.CompGCN",
+    "han": "cogdl_tpu_torch.models.nn.han.HAN",
+    "gtn": "cogdl_tpu_torch.models.nn.gtn.GTN",
+    "simple_hgn": "cogdl_tpu_torch.models.nn.simple_hgn.SimpleHGN",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -88,10 +94,17 @@ def load_jax_params(model: Module, params: Mapping,
     ``layer0.linear``, ``layer0/W`` ↔ ``layer0.W``, GraphSAGE's
 ``layer0/W_self`` ↔ ``layer0.W_self``). A flax ``kernel`` is
     [in, out] and becomes the transposed torch ``weight`` [out, in]; a
-    LayerNorm ``scale`` becomes its ``weight``; every other leaf keeps its
+    LayerNorm ``scale`` and an ``nn.Embed`` ``embedding`` (CompGCN's
+    ``ent``) become the torch module's ``weight``; every other leaf keeps its
     name and shape (GAT's ``a_src``/``a_dst`` [1, H, D]). Raises if a parameter of the
     model is left unfilled or a leaf has no place in it."""
     state: Dict[str, torch.Tensor] = {}
+
+    def _submodule(path: str):
+        try:
+            return model.get_submodule(path)
+        except AttributeError:   # a leaf with no place: reported below
+            return None
 
     def walk(tree: Mapping, prefix: str, is_params: bool):
         for key, value in tree.items():
@@ -103,8 +116,9 @@ def load_jax_params(model: Module, params: Mapping,
             mod_path, _, leaf = path.rpartition(".")
             if is_params and leaf == "kernel":
                 state[f"{mod_path}.weight"] = t.T.contiguous()
-            elif (is_params and leaf == "scale" and isinstance(
-                    model.get_submodule(mod_path), LayerNorm)):
+            elif is_params and isinstance(_submodule(mod_path), {
+                    "scale": LayerNorm, "embedding": Embedding}.get(
+                        leaf, ())):
                 state[f"{mod_path}.weight"] = t
             else:
                 state[path] = t

@@ -3,8 +3,9 @@ owns the task-specific pieces (data preparation, loss, evaluation); the
 Trainer stays task-agnostic. Full-batch node classification and its
 sampled forms are ported so far: neighbor sampling on the host and on the
 device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); and graph
-classification over union batches (``graph_classification``); the rest
-wait in ROADMAP.md §1."""
+classification over union batches (``graph_classification``), and
+heterogeneous node classification over metapath graphs
+(``heterogeneous_gnn``); the rest wait in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
         "GraphSAINTWrapper",
     "graph_classification":
         "cogdl_tpu_torch.wrappers.graph_classification.GraphClfWrapper",
+    "heterogeneous_gnn":
+        "cogdl_tpu_torch.wrappers.heterogeneous.HeterogeneousGNNWrapper",
 }
 
 # model name → default wrapper
@@ -49,6 +52,9 @@ DEFAULT_WRAPPER = {
     "autognn": "node_classification", "disengcn": "node_classification",
     "srgcn": "node_classification", "gin": "graph_classification",
     "sortpool": "graph_classification", "diffpool": "graph_classification",
+    "han": "heterogeneous_gnn", "gtn": "heterogeneous_gnn",
+    "simple_hgn": "heterogeneous_gnn",
+    "rgcn": "heterogeneous_gnn", "compgcn": "heterogeneous_gnn",
 }
 
 

@@ -404,9 +404,9 @@ def test_subgraph_wrappers_resolve_and_train_an_epoch(name):
 
 def test_an_unported_wrapper_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        fetch_wrapper("heterogeneous_gnn")
+        fetch_wrapper("multiplex_embedding")
     with pytest.raises(ValueError, match="not yet ported"):
-        train("sbm", "graphsage", wrapper="heterogeneous_gnn", epochs=1,
+        train("sbm", "graphsage", wrapper="multiplex_embedding", epochs=1,
               device="cpu")
 
 

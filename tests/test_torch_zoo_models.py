@@ -296,9 +296,11 @@ def test_every_jax_name_the_port_lacks_is_not_yet_ported():
                "grand", "pprgo", "moe_gcn", "robustgcn", "gnnguard_gcn",
                "gdc_gcn", "actgcn", "autognn", "disengcn", "srgcn"}
     graph_clf = {"gin", "sortpool", "diffpool"}
+    hetero = {"han", "gtn", "rgcn", "compgcn", "simple_hgn"}
     missing = sorted(set(JAX_MODELS) - set(SUPPORTED_MODELS))
-    assert {"han", "rgcn"} <= set(missing)
-    assert not (set(ZOO) | rest_of_zoo | graph_clf) & set(missing)
+    assert len(missing) == 45
+    assert {"graph_unet", "unet", "gcnmix", "patchy_san"} <= set(missing)
+    assert not (set(ZOO) | rest_of_zoo | graph_clf | hetero) & set(missing)
     for name in missing:
         with pytest.raises(ValueError, match="not yet ported"):
             build_model(name, in_features=4, out_features=2)
