@@ -57,8 +57,14 @@ metapath graphs of about 1.09 M edges): K1 at F=1870 and K3 at (8, 8) over
 a metapath graph's structure, HAN, GTN, RGCN, CompGCN (at 3,025 nodes) and
 Simple-HGN through ``experiment()`` with exact launch counts (K3 for HAN,
 K1 for GTN, none for the rest), card against CPU logits at 1,500 nodes,
-and test accuracy against the JAX package's. Prints one JSON line of
-kernel measurements and, last,
+and test accuracy against the JAX package's; then the node-classification
+stragglers at 100k nodes: Graph U-Net, GCNMix, SAGN and M3S (two stages
+over the graph with a third of its non-train nodes in no split), Correct &
+Smooth and ``unet`` through ``experiment()`` with exact K1 launch counts,
+PATCHY-SAN on the NCI1-scale set (no kernel of ours), K1 at F=100, card
+against CPU outputs at 20k nodes (Graph U-Net's keep masks and their
+margin) and test accuracy against the JAX package's. Prints one JSON line
+of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails. ``--gather-only`` builds the kernels and runs only the
 gather probes' kernel check; its last line says ``"gather_only": true``.
@@ -100,6 +106,7 @@ from cogdl_tpu_torch.datasets.synthetic import (
 )
 from cogdl_tpu_torch.experiments import experiment
 from cogdl_tpu_torch.models import build_model
+from cogdl_tpu_torch.models.nn.patchy_san import assemble_fields
 from cogdl_tpu_torch.ops import (
     cache_propagation,
     edge_softmax,
@@ -123,7 +130,11 @@ from cogdl_tpu_torch.ops.cuda import (
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
 from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
-from cogdl_tpu_torch.wrappers.graph_classification import GraphClfWrapper
+from cogdl_tpu_torch.wrappers import default_wrapper_for, fetch_wrapper
+from cogdl_tpu_torch.wrappers.graph_classification import (
+    GraphClfWrapper,
+    PatchySANWrapper,
+)
 from cogdl_tpu_torch.wrappers.heterogeneous import HeterogeneousGNNWrapper
 from cogdl_tpu_torch.wrappers.node_classification import NodeClfWrapper
 from cogdl_tpu_torch.wrappers.sampled_node_classification import (
@@ -3309,7 +3320,7 @@ def phase_zoo_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
 
 
 def _step_profile(model: str, kw, graph, device: torch.device,
-                  normalised_by_norm: dict):
+                  normalised_by_norm: dict, wrapper_cls=NodeClfWrapper):
     """``torch.profiler``'s view (:func:`profile_window`) of one train step
     of ``model`` at ``kw`` over ``graph`` on ``device`` (the wrapper's
     loss, its backward and an Adam step, ending in a synchronisation),
@@ -3317,11 +3328,12 @@ def _step_profile(model: str, kw, graph, device: torch.device,
     wrapper's normalised graph on the host by the model's ``adj_norm`` for
     the next call, so that the host rebuild of ``add_self_loops`` runs
     once a normalisation; the card holds only this call's copy, which the
-    next run's ``peak_hbm_bytes`` then does not count."""
+    next run's ``peak_hbm_bytes`` then does not count. ``wrapper_cls``:
+    the model's wrapper (``NodeClfWrapper`` or a subclass)."""
     net = build_model(model, in_features=FEAT_DIM, out_features=NUM_CLASSES,
                       **kw)
     net.reset_parameters(torch.Generator().manual_seed(0))
-    wrapper = NodeClfWrapper(net.to(device))
+    wrapper = wrapper_cls(net.to(device))
     norm = getattr(net, "adj_norm", None)
     if norm not in normalised_by_norm:
         normalised_by_norm[norm] = wrapper.normalise(graph.to("cpu"))
@@ -4263,6 +4275,411 @@ def phase_hetero_quality(device: torch.device, models=tuple(HETERO_KW),
     return accs
 
 
+# ---------------------------------------------------------------------------
+# The node-classification stragglers (ROADMAP item 13c): Graph U-Net,
+# GCNMix, SAGN, M3S, Correct & Smooth and PATCHY-SAN
+# ---------------------------------------------------------------------------
+
+# each model at its BEST_CONFIGS width (sagn, gcnmix) or its default (the
+# rest; C&S's 50 + 50 steps are the JAX defaults), through experiment()
+# with use_best_config=True on the main path's graph
+STRAGGLER_KW = {
+    "graph_unet": {"hidden_size": 64, "pooling_rates": (0.5, 0.5)},
+    "gcnmix": {"hidden_size": 64, "alpha": 1.0},
+    "sagn": {"hidden_size": 64, "num_hops": 3},
+    "m3s": {"hidden_size": 64},
+    "correct_smooth_mlp": {"hidden_size": 64, "num_layers": 3,
+                           "correct_steps": 50, "smooth_steps": 50},
+}
+STRAGGLER_EPOCHS = 5
+# the staged wrappers (SAGN, M3S) train this many stages of
+# STRAGGLER_EPOCHS each
+STRAGGLER_STAGES = 2
+STAGED = ("sagn", "m3s")
+# SAGN's pseudo-label threshold on the main path's graph: its features and
+# labels are random, so after 5 epochs the softmax maximum is about 1/47
+# to 0.1 (median 0.057 at 20k nodes on the CPU); 0.06 makes stage 1 take
+# labels, where the default 0.9 would take none
+STRAGGLER_SAGN_THRESHOLD = 0.06
+# the runs of straggler-main: each model, and the alias unet at one epoch
+STRAGGLER_RUNS = tuple((m, m, kw) for m, kw in STRAGGLER_KW.items()) + (
+    ("unet", "unet", STRAGGLER_KW["graph_unet"]),)
+# PATCHY-SAN at its defaults (width 16, k 8, hidden 32) on graph-main's
+# NCI1-scale set: one train batch of [2877, 16, 8, 37]
+PATCHY_KW = {"hidden_size": 32, "width": 16, "k": 8}
+PATCHY_EPOCHS = 3
+PATCHY_PARITY_GRAPHS = 512
+# The quality runs: each model's mean test accuracy over seeds 0 to
+# SEEDS - 1 at its defaults for 100 epochs (each stage of the staged
+# wrappers), on sbm (PATCHY-SAN on the default random-graphs). Four seeds,
+# but more where a package's accuracy over seeds 0-7 on the CPU spreads
+# wider than the margin: 8 for Graph U-Net (port 0.975-1.0), GCNMix (JAX
+# 0.975-1.0), SAGN (port 0.955-1.0) and M3S (JAX 0.965-0.995); 16 for
+# PATCHY-SAN, whose 60 default graphs leave 12 in the test split (JAX
+# 0.33-0.75 over seeds 0-15, port 0.42-0.92 over 0-7). On sbm every node
+# is in a split, so SAGN's and M3S's second stage adds no label there
+STRAGGLER_QUALITY_SEEDS = {"graph_unet": 8, "gcnmix": 8, "sagn": 8,
+                           "m3s": 8, "correct_smooth_mlp": 4,
+                           "patchy_san": 16}
+# The JAX package's own test accuracy at those settings, the mean over the
+# same seeds, on the CPU, each from
+#   JAX_PLATFORMS=cpu python -c "from cogdl_tpu import experiment; \
+#       experiment(dataset=DATASET, model=MODEL, epochs=100, \
+#                  seed=list(range(SEEDS)))"
+# run from the repo root, DATASET sbm (random-graphs for patchy_san); the
+# card's bar is each less ZOO_QUALITY_MARGIN
+STRAGGLER_JAX_ACC = {"graph_unet": 0.98875, "gcnmix": 0.9925,
+                     "sagn": 0.998125, "m3s": 0.985,
+                     "correct_smooth_mlp": 0.9975, "patchy_san": 0.53125}
+
+
+def held_out_split(g, seed: int = 0):
+    """``g`` with the real nodes outside its train split cut in three by a
+    seeded permutation: a third val, a third test, a third in no split.
+    The main path's graph puts every node in a split (val and test are
+    both the rest), which leaves SAGN's pseudo-labels and M3S's expansion
+    no node to label; a Planetoid split leaves most of Cora in none."""
+    rest = torch.nonzero(~g.train_mask & g.node_mask()).flatten().cpu()
+    rest = rest[torch.from_numpy(
+        np.random.default_rng(seed).permutation(rest.numel()))]
+    third = rest.numel() // 3
+    val = torch.zeros_like(g.train_mask)
+    test = torch.zeros_like(g.train_mask)
+    val[rest[:third].to(val.device)] = True
+    test[rest[third: 2 * third].to(test.device)] = True
+    return g.replace(val_mask=val, test_mask=test)
+
+
+def _straggler_expected(model: str, kw, steps: int, evals: int,
+                        on_card: bool, stages: int = 1):
+    """K1 launches of ``model``'s run at ``kw``, by case, for ``steps``
+    train steps, ``evals`` evaluations and ``stages`` stages. A train step
+    runs each propagation's forward over the CSR and, where its input takes
+    a gradient, its backward over the CSC; an evaluation runs the
+    forwards. Graph U-Net: ``in_gcn``, a down and an up layer a level, all
+    at the hidden width. GCNMix: the hidden width and F=47. SAGN:
+    ``num_hops`` at F=100, forward only (the features take no gradient),
+    and once more at each later stage's ``pre_stage``. M3S: the hidden
+    width and F=47, and ``embed``'s first layer at each later stage. C&S:
+    none a step, ``correct_steps + smooth_steps`` at F=47 an evaluation.
+    PATCHY-SAN: none."""
+    if not on_card or model == "patchy_san":
+        return {}
+    hidden = kw.get("hidden_size", 64)
+    later = stages - 1
+    expected = collections.Counter()
+    if model == "correct_smooth_mlp":
+        expected[("csr", NUM_CLASSES)] = evals * (
+            kw.get("correct_steps", 50) + kw.get("smooth_steps", 50))
+        props = []
+    elif model in ("graph_unet", "unet"):
+        levels = len(kw.get("pooling_rates", (0.5, 0.5)))
+        props = [(hidden, True, 0)] * (1 + 2 * levels)
+    elif model == "gcnmix":
+        props = [(hidden, True, 0), (NUM_CLASSES, True, 0)]
+    elif model == "sagn":
+        props = [(FEAT_DIM, False, later)] * kw.get("num_hops", 3)
+    else:
+        props = [(hidden, True, later), (NUM_CLASSES, True, 0)]
+    for feat, grad, extra in props:
+        expected[("csr", feat)] += steps + evals + extra
+        expected[("csc", feat)] += steps if grad else 0
+    return {"spmm_csr": +expected} if +expected else {}
+
+
+def _unet_kept(graph, device: torch.device, kw, normalised_by_norm):
+    """The kept count at each of Graph U-Net's levels, from seeded weights
+    over the normalised ``graph`` (cached by :func:`_step_profile`) with
+    its structure on ``device``."""
+    net = build_model("graph_unet", in_features=FEAT_DIM,
+                      out_features=NUM_CLASSES, **kw)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    wrapper = NodeClfWrapper(net.to(device))
+    if "sym" not in normalised_by_norm:
+        normalised_by_norm["sym"] = wrapper.normalise(graph.to("cpu"))
+    prepared = wrapper.with_structure(normalised_by_norm["sym"].to(device))
+    with torch.no_grad():
+        _, levels = net(prepared, return_levels=True)
+    return [int(keep.sum()) for _, _, keep in levels]
+
+
+def phase_straggler_main(device: torch.device, num_nodes: int = NUM_NODES,
+                         epochs: int = STRAGGLER_EPOCHS,
+                         runs=STRAGGLER_RUNS, graph_set=GRAPH_SET,
+                         patchy_epochs: int = PATCHY_EPOCHS,
+                         iters: int = 20):
+    """Each run of :data:`STRAGGLER_RUNS` through ``experiment()``
+    (``use_best_config=True``) on the main path's graph for ``epochs``
+    epochs (``unet`` for one), an evaluation each and one at the end; SAGN
+    and M3S for :data:`STRAGGLER_STAGES` stages over the graph with a third
+    of its non-train nodes in no split (:func:`held_out_split`), SAGN at
+    :data:`STRAGGLER_SAGN_THRESHOLD`: the exact K1 launches of
+    :func:`_straggler_expected` and no other counted kernel, a finite loss,
+    ``train_step_ms``, ``eval_ms``, the peak of allocated card memory,
+    the labels a later stage added (at least one) and M3S's KMeans time,
+    ``torch.profiler``'s view of one more train step
+    (:func:`_step_profile`, on the model's own wrapper; C&S's evaluation
+    too), Graph U-Net's kept count a level, and the run's seconds. Then
+    PATCHY-SAN at :data:`PATCHY_KW` on graph-main's set for
+    ``patchy_epochs`` epochs: no kernel launched, a profiled epoch. Last,
+    K1 over the main path's CSR at F=100 (SAGN's hops, a width no earlier
+    entry has) measured by :func:`_k1_entry`. Returns each run's record,
+    the launches by case summed over the runs and the entry."""
+    g = powerlaw_graph(num_nodes, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                       num_classes=NUM_CLASSES, seed=0)
+    datasets = {False: Dataset.from_graph(g, name=f"powerlaw-{num_nodes}"),
+                True: Dataset.from_graph(held_out_split(g),
+                                         name=f"powerlaw-{num_nodes}")}
+    on_card = device.type == "cuda"
+    info, launches_by = {}, collections.defaultdict(collections.Counter)
+    normalised_by_norm = {}
+    for label, model, kw in runs:
+        staged = model in STAGED
+        stages = STRAGGLER_STAGES if staged else 1
+        n_epochs = 1 if label == "unet" else epochs
+        extra = ({"num_stages": stages} if staged else {})
+        if model == "sagn":
+            extra["threshold"] = STRAGGLER_SAGN_THRESHOLD
+        t0 = time.perf_counter()
+        sk.reset_launch_counts()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        results = experiment(dataset=datasets[staged], model=model,
+                             use_best_config=True, epochs=n_epochs,
+                             patience=n_epochs + 1, eval_step=1, seed=0,
+                             device=str(device), **kw, **extra)
+        (res,) = next(iter(results.values()))
+        counts = _launch_counts()
+        steps = n_epochs * stages
+        expected = _straggler_expected(model, kw, steps, steps + 1, on_card,
+                                       stages)
+        if counts != expected:
+            raise AssertionError(f"straggler-main {label} ({steps} steps, "
+                                 f"{steps + 1} evaluations, {stages} "
+                                 f"stages) launched {counts}; expected "
+                                 f"{expected}")
+        if not np.isfinite(res["train_loss"]):
+            raise AssertionError(f"straggler-main {label}: loss not finite: "
+                                 f"{res}")
+        record = res.get("stages", {})
+        added = [r.get("pseudo_labels", r.get("new_labels", 0))
+                 for r in record.values()]
+        if staged and (len(added) != stages - 1 or not all(added)):
+            raise AssertionError(f"straggler-main {label}: a later stage "
+                                 f"added no label: {record}")
+        for kernel, by_case in counts.items():
+            launches_by[kernel].update(by_case)
+        wrapper_cls = fetch_wrapper(default_wrapper_for(model))
+        info[label] = {
+            "train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "peak_hbm_bytes": (torch.cuda.max_memory_allocated(device)
+                               if on_card else None),
+            "train_loss": res["train_loss"], "epochs": n_epochs,
+            "stages": stages, "stage_record": record,
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()},
+            "profile": _step_profile(model, kw, g, device,
+                                     normalised_by_norm, wrapper_cls)}
+        if model in ("graph_unet", "unet"):
+            info[label]["kept"] = _unet_kept(g, device, kw,
+                                              normalised_by_norm)
+        if model == "correct_smooth_mlp":
+            info[label]["eval_launches"] = (
+                kw["correct_steps"] + kw["smooth_steps"] if on_card else 0)
+            info[label]["eval_profile"] = _eval_profile(
+                model, kw, device, normalised_by_norm, wrapper_cls)
+        info[label]["seconds"] = time.perf_counter() - t0
+    info["patchy_san"] = _patchy_main(device, graph_set, patchy_epochs)
+    print(f"[straggler-main] {json.dumps(info)}")
+    kg = kernel_graph(num_nodes, device)
+    entry = _k1_entry(f"spmm_csr[csr,F={FEAT_DIM}]", kg.extras, "fw",
+                      FEAT_DIM, torch.Generator(device=device).manual_seed(8),
+                      device, iters)
+    print(f"[straggler-main] {json.dumps(entry)}")
+    info["launches_by"] = {k: dict(v) for k, v in launches_by.items()}
+    info["entries"] = [entry]
+    return info
+
+
+def _eval_profile(model: str, kw, device: torch.device, normalised_by_norm,
+                  wrapper_cls):
+    """``torch.profiler``'s view of one evaluation of ``model`` on its
+    wrapper over the normalised graph that :func:`_step_profile` cached,
+    after one of warm-up."""
+    net = build_model(model, in_features=FEAT_DIM, out_features=NUM_CLASSES,
+                      **kw)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    wrapper = wrapper_cls(net.to(device))
+    prepared = wrapper.with_structure(normalised_by_norm["sym"].to(device))
+
+    def evaluate():
+        float(wrapper.evaluate(prepared)["val_acc"])
+
+    evaluate()
+    return profile_window(evaluate, device)
+
+
+def _patchy_main(device: torch.device, graph_set, epochs: int):
+    """PATCHY-SAN through ``experiment()`` on the set of ``graph_set``:
+    no counted kernel, a finite loss, the times, the peak of card memory,
+    and ``torch.profiler``'s view of one more epoch of its one train
+    batch (:func:`_epoch_profile`)."""
+    ds = graph_dataset(tuple(sorted(graph_set.items())))
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    sk.reset_launch_counts()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    results = experiment(dataset=ds, model="patchy_san", epochs=epochs,
+                         patience=epochs + 1, eval_step=1, seed=0,
+                         device=str(device), **PATCHY_KW)
+    (res,) = next(iter(results.values()))
+    counts = _launch_counts()
+    if counts:
+        raise AssertionError(f"straggler-main patchy_san launched {counts}; "
+                             "expected no kernel of ours")
+    if not np.isfinite(res["train_loss"]):
+        raise AssertionError(f"straggler-main patchy_san: loss not finite: "
+                             f"{res}")
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    net = build_model("patchy_san", in_features=ds.num_features,
+                      out_features=ds.num_classes, **PATCHY_KW)
+    wrapper = PatchySANWrapper(net, ds, seed=0)
+    wrapper.init(torch.Generator().manual_seed(0))
+    wrapper.to_device(device)
+    X, _ = wrapper.train_batches()[0]
+    return {"train_step_ms": res["train_step_ms"], "eval_ms": res["eval_ms"],
+            "peak_hbm_bytes": peak, "train_loss": res["train_loss"],
+            "test_acc": res["test_acc"], "epochs": epochs,
+            "train_batch": list(X.shape), "launches": {},
+            "profile": _epoch_profile(wrapper, None, device),
+            "seconds": time.perf_counter() - t0}
+
+
+def _straggler_forward(net, model: str, g, device: torch.device):
+    """``net``'s output over ``g`` on ``device`` with dropout off, through
+    its wrapper's preparation: logits, C&S's after ``postprocess``, and
+    Graph U-Net's levels (score, thresh, keep) on the host."""
+    m = copy.deepcopy(net).to(device)
+    prepared = NodeClfWrapper(m).prepare_graph(g.to(device))
+    levels = []
+    with torch.no_grad():
+        if model == "graph_unet":
+            out, levels = m(prepared, return_levels=True)
+            levels = [(s.cpu(), float(t), k[:, 0].cpu()) for s, t, k in levels]
+        else:
+            out = m(prepared, training=False)
+        if model == "correct_smooth_mlp":
+            out = m.postprocess(prepared, out)
+    return out[: g.num_nodes].cpu(), levels
+
+
+def _keep_margin(score: torch.Tensor, thresh: float, n: int) -> float:
+    """How far the kept set is from a flip: the k-th score less the largest
+    real score below it (inf where none lies below)."""
+    below = score[:n][score[:n] < thresh]
+    return float(thresh - below.max()) if below.numel() else float("inf")
+
+
+def phase_straggler_parity(device: torch.device,
+                           num_nodes: int = GAT_PARITY_NODES,
+                           models=tuple(STRAGGLER_KW), graph_set=GRAPH_SET,
+                           patchy_graphs: int = PATCHY_PARITY_GRAPHS):
+    """Each model's output on ``device`` (K1) against the CPU's (its plain
+    version), the same seeded weights, dropout off, on a 20k-node graph:
+    C&S's after ``postprocess``; the largest difference within
+    ``LOGIT_ATOL + LOGIT_RTOL·max|out|``, printed beside that magnitude.
+    For Graph U-Net also each level's keep masks (equal or not), the
+    smallest margin of its threshold (:func:`_keep_margin`, the CPU's) and
+    the largest card-against-CPU score difference among the real nodes of
+    its mask. Then PATCHY-SAN over the first ``patchy_graphs`` graphs of
+    graph-main's set. Returns each model's record."""
+    g = parity_graph(num_nodes)
+    out = {}
+    for model in models:
+        net = build_model(model, in_features=FEAT_DIM,
+                          out_features=NUM_CLASSES, dropout=0.0,
+                          **STRAGGLER_KW[model])
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        (ref, ref_levels), (got, got_levels) = (
+            _straggler_forward(net, model, g, dev)
+            for dev in (torch.device("cpu"), device))
+        rec = {"max_abs_diff": float((got - ref).abs().max()),
+               "max_abs_out": float(ref.abs().max())}
+        if model == "graph_unet":
+            rec["keep_equal"] = [bool(torch.equal(a[2], b[2]))
+                                 for a, b in zip(ref_levels, got_levels)]
+            rec["kept"] = [int(a[2].sum()) for a in ref_levels]
+            rec["min_margin"] = min(_keep_margin(s, t, num_nodes)
+                                    for s, t, _ in ref_levels)
+            rec["max_score_diff"] = max(
+                float((a[0][:num_nodes] - b[0][:num_nodes])[
+                    a[2][:num_nodes] > 0].abs().max())
+                for a, b in zip(ref_levels, got_levels))
+        rec["seconds"] = time.perf_counter() - t0
+        out[model] = rec
+        print(f"[straggler-parity] {model} {json.dumps(rec)}")
+    ds = graph_dataset(tuple(sorted(graph_set.items())))
+    graphs = ds.graphs[:patchy_graphs]
+    fields = assemble_fields(graphs, width=PATCHY_KW["width"],
+                             k=PATCHY_KW["k"])
+    feats = torch.from_numpy(np.stack(
+        [gr.x.numpy()[f] for gr, f in zip(graphs, fields)]))
+    net = build_model("patchy_san", in_features=ds.num_features,
+                      out_features=ds.num_classes, dropout=0.0, **PATCHY_KW)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = net(feats)
+        got = copy.deepcopy(net).to(device)(feats.to(device)).cpu()
+    out["patchy_san"] = {"max_abs_diff": float((got - ref).abs().max()),
+                         "max_abs_out": float(ref.abs().max()),
+                         "graphs": len(graphs)}
+    print(f"[straggler-parity] patchy_san {json.dumps(out['patchy_san'])}")
+    bad = {m: r for m, r in out.items()
+           if not r["max_abs_diff"] <= LOGIT_ATOL + LOGIT_RTOL *
+           r["max_abs_out"]}
+    if bad:
+        raise AssertionError(f"straggler-parity: {device.type} outputs "
+                             f"differ from CPU outputs beyond LOGIT_ATOL + "
+                             f"LOGIT_RTOL·max|out|: {bad}")
+    return out
+
+
+def phase_straggler_quality(device: torch.device,
+                            models=tuple(STRAGGLER_QUALITY_SEEDS),
+                            epochs=None, seeds=None):
+    """Each model's mean test accuracy over its
+    :data:`STRAGGLER_QUALITY_SEEDS` (or ``seeds``) at its defaults for 100
+    epochs (or ``epochs``) on ``sbm`` (PATCHY-SAN on the default
+    ``random-graphs``), held to the JAX package's own accuracy at the same
+    settings less :data:`ZOO_QUALITY_MARGIN` (:data:`STRAGGLER_JAX_ACC`).
+    M3S clusters with the port's KMeans: no scikit-learn."""
+    accs, per_seed, seconds = {}, {}, {}
+    for m in models:
+        t0 = time.perf_counter()
+        results = experiment(
+            dataset="random-graphs" if m == "patchy_san" else "sbm",
+            model=m, epochs=epochs or 100,
+            seed=list(range(seeds or STRAGGLER_QUALITY_SEEDS[m])),
+            device=str(device))
+        seconds[m] = round(time.perf_counter() - t0, 1)
+        (runs,) = results.values()
+        per_seed[m] = [r["test_acc"] for r in runs]
+        accs[m] = float(np.mean(per_seed[m]))
+    print(f"[straggler-quality] test_acc {json.dumps(accs)} (JAX package "
+          f"{json.dumps(STRAGGLER_JAX_ACC)}, margin {ZOO_QUALITY_MARGIN}); "
+          f"by seed {json.dumps(per_seed)}; seconds {json.dumps(seconds)}")
+    short = {m: a for m, a in accs.items()
+             if a < STRAGGLER_JAX_ACC[m] - ZOO_QUALITY_MARGIN}
+    if short:
+        raise AssertionError(f"straggler-quality: test_acc below the JAX "
+                             f"package's less {ZOO_QUALITY_MARGIN}: {short}")
+    return accs
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print how long it took."""
     t0 = time.perf_counter()
@@ -4404,6 +4821,15 @@ def main(argv=None) -> int:
         e["launches"] = hetero_info["launches_by"].get(kernel, {}).get(
             tuple(case), 0)
     entries += hetero_entries
+    # the node-classification stragglers
+    straggler_info = timed(phase_straggler_main, device)
+    timed(phase_straggler_parity, device)
+    straggler_acc = timed(phase_straggler_quality, device)
+    for e in straggler_info["entries"]:
+        kernel, *case = e["case"]
+        e["launches"] = straggler_info["launches_by"].get(kernel, {}).get(
+            tuple(case), 0)
+    entries += straggler_info["entries"]
     for e in entries:
         kernel, *case = e.pop("case", [None])
         for key, run in (("launches_host_sampled", host_info),
@@ -4412,7 +4838,8 @@ def main(argv=None) -> int:
                          ("launches_zoo", zoo_info),
                          ("launches_rest_zoo", rest_info),
                          ("launches_graph", graph_info),
-                         ("launches_hetero", hetero_info)):
+                         ("launches_hetero", hetero_info),
+                         ("launches_stragglers", straggler_info)):
             e[key] = run["launches_by"].get(kernel, {}).get(tuple(case), 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
@@ -4477,6 +4904,13 @@ def main(argv=None) -> int:
                       for k, v in hetero_info.items() if k != "launches_by")
           + "; hetero-quality test_acc "
           + ", ".join(f"{k} {v:.4f}" for k, v in hetero_acc.items())
+          + "; stragglers train_step_ms (eval_ms, peak GB) "
+          + ", ".join(f"{k} {v['train_step_ms']:.3f} ({v['eval_ms']:.3f}, "
+                      f"{v['peak_hbm_bytes'] / 1e9:.2f})"
+                      for k, v in straggler_info.items()
+                      if k not in ("launches_by", "entries"))
+          + "; straggler-quality test_acc "
+          + ", ".join(f"{k} {v:.4f}" for k, v in straggler_acc.items())
           + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))

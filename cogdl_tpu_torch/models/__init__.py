@@ -9,7 +9,9 @@ full-batch node-classification models ``gcnii``, ``appnp`` (alias
 ``gdc_gcn``, ``actgcn``, ``autognn``, ``disengcn`` and ``srgcn``, the
 graph classification models ``gin``, ``sortpool`` and ``diffpool``, and the
 heterogeneous models ``han``, ``gtn``, ``rgcn``, ``compgcn`` and
-``simple_hgn``, are ported so far; every other name of the JAX registry waits in ROADMAP.md §1
+``simple_hgn``, and the node-classification stragglers ``graph_unet``
+(alias ``unet``), ``gcnmix``, ``sagn``, ``m3s``, ``correct_smooth_mlp``
+and ``patchy_san``, are ported so far; every other name of the JAX registry waits in ROADMAP.md §1
 ("Modules to port").
 """
 
@@ -62,6 +64,14 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "han": "cogdl_tpu_torch.models.nn.han.HAN",
     "gtn": "cogdl_tpu_torch.models.nn.gtn.GTN",
     "simple_hgn": "cogdl_tpu_torch.models.nn.simple_hgn.SimpleHGN",
+    "graph_unet": "cogdl_tpu_torch.models.nn.graph_unet.GraphUnet",
+    "unet": "cogdl_tpu_torch.models.nn.graph_unet.GraphUnet",
+    "gcnmix": "cogdl_tpu_torch.models.nn.gcnmix.GCNMix",
+    "sagn": "cogdl_tpu_torch.models.nn.sagn.SAGN",
+    "m3s": "cogdl_tpu_torch.models.nn.m3s.M3S",
+    "correct_smooth_mlp":
+        "cogdl_tpu_torch.models.nn.correct_smooth.CorrectSmoothMLP",
+    "patchy_san": "cogdl_tpu_torch.models.nn.patchy_san.PatchySAN",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -92,8 +102,10 @@ def load_jax_params(model: Module, params: Mapping,
 
     The module paths are the same in both packages (``layer0/linear`` ↔
     ``layer0.linear``, ``layer0/W`` ↔ ``layer0.W``, GraphSAGE's
-``layer0/W_self`` ↔ ``layer0.W_self``). A flax ``kernel`` is
+    ``layer0/W_self`` ↔ ``layer0.W_self``). A flax ``kernel`` is
     [in, out] and becomes the transposed torch ``weight`` [out, in]; a
+    flax ``Conv`` kernel [k, in, out] becomes a ``Conv1d`` ``weight`` [out,
+    in, k] by an explicit permutation (PATCHY-SAN's ``conv1``, ``conv2``); a
     LayerNorm ``scale`` and an ``nn.Embed`` ``embedding`` (CompGCN's
     ``ent``) become the torch module's ``weight``; every other leaf keeps its
     name and shape (GAT's ``a_src``/``a_dst`` [1, H, D]). Raises if a parameter of the
@@ -114,7 +126,10 @@ def load_jax_params(model: Module, params: Mapping,
                 continue
             t = torch.from_numpy(np.array(value, dtype=np.float32))
             mod_path, _, leaf = path.rpartition(".")
-            if is_params and leaf == "kernel":
+            if is_params and leaf == "kernel" and t.ndim == 3:
+                # a flax Conv kernel [k, in, out] is torch's [out, in, k]
+                state[f"{mod_path}.weight"] = t.permute(2, 1, 0).contiguous()
+            elif is_params and leaf == "kernel":
                 state[f"{mod_path}.weight"] = t.T.contiguous()
             elif is_params and isinstance(_submodule(mod_path), {
                     "scale": LayerNorm, "embedding": Embedding}.get(

@@ -14,6 +14,15 @@ one step per row of ``epoch_xs(graph)`` each epoch, the batch made by
 ``make_batch(graph, row)`` (the JAX trainer scans that loop inside one jit;
 here it is a plain loop).
 
+A wrapper with ``num_stages`` trains that many stages in a row, as the JAX
+trainer does: before each, ``pre_stage(stage, graph)`` runs with the best
+snapshot's weights in the model and may return a new graph (its batches
+are then rebuilt); after each, ``post_stage(stage, graph)``, also with the
+best weights. Training goes on from the current weights and optimizer
+state. Patience restarts each stage; the best score, its epoch and the
+``nan_guard`` count carry over; ``start_epoch`` applies to stage 0 only;
+``train_step_ms`` and ``eval_ms`` span every stage.
+
 It runs on the card unless the config asks for the CPU, and raises when no
 card is visible rather than carry on on the CPU.
 """
@@ -175,6 +184,18 @@ def _restore(model, opt, sched, snap):
         sched.load_state_dict(sched_state)
 
 
+def _with_weights(model, snap, fn):
+    """``fn()`` with the model's weights (and buffers) those of the snapshot
+    ``snap``; the model's own are put back after, and the optimizer's state
+    is not touched."""
+    current = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(snap[0])
+    try:
+        return fn()
+    finally:
+        model.load_state_dict(current)
+
+
 class Trainer:
     """Task-agnostic epoch driver around a wrapper's loss/evaluate."""
 
@@ -252,65 +273,85 @@ class Trainer:
         best_snap = _snapshot(model, opt, sched)
         best_epoch = 0
         nan_rollbacks = 0
-        patience_left = cfg.patience
         step_ms, eval_ms = [], []
         train_loss = float("nan")
         t0 = time.time()
-        for epoch in range(start_epoch, cfg.epochs):
-            t_step = time.perf_counter()
-            if epoch_rows:
-                losses = [self.train_step(wrapper, opt, sched,
-                                          wrapper.make_batch(graph, x),
-                                          generator)
-                          for x in wrapper.epoch_xs(graph)]
-            else:
-                if refresh and epoch > 0:
-                    batches = wrapper.train_batches(graph)
-                losses = [self.train_step(wrapper, opt, sched, b, generator)
-                          for b in batches]
-            if (epoch + 1) % cfg.eval_step == 0:
-                # float() waits for the device, so this clock spans the steps
-                train_loss = float(torch.stack(losses).mean())
-                t_eval = time.perf_counter()
-                step_ms.append((t_eval - t_step) * 1e3 / len(losses))
-                if cfg.nan_guard:
-                    if not np.isfinite(train_loss):
-                        # consecutive failures only — a recovered blip resets
-                        nan_rollbacks += 1
-                        if nan_rollbacks > cfg.nan_guard_retries:
-                            raise RuntimeError(
-                                f"training diverged: non-finite loss at epoch "
-                                f"{epoch} persisted through "
-                                f"{cfg.nan_guard_retries} rollbacks "
-                                "(lower lr / enable grad_clip)")
-                        _restore(model, opt, sched, best_snap)
-                        print(f"nan_guard: non-finite loss at epoch {epoch}; "
-                              f"rolled back to epoch {best_epoch} snapshot "
-                              f"({nan_rollbacks}/{cfg.nan_guard_retries})")
-                        continue
-                    nan_rollbacks = 0
-                metrics = wrapper.evaluate(graph)
-                if monitor not in metrics:
-                    raise KeyError(
-                        f"early-stop monitor {monitor!r} not in eval metrics "
-                        f"{sorted(metrics)}")
-                score = float(metrics[monitor]) * sign
-                eval_ms.append((time.perf_counter() - t_eval) * 1e3)
-                if score > best:
-                    best = score
-                    best_snap = _snapshot(model, opt, sched)
-                    best_epoch = epoch
-                    patience_left = cfg.patience
+        for stage in range(getattr(wrapper, "num_stages", 1)):
+            if hasattr(wrapper, "pre_stage"):
+                # the multi-stage contract (SAGN, M3S self-training): the
+                # hook sees the best snapshot's weights, as the JAX trainer
+                # passes its best parameters; training goes on from the
+                # current ones
+                upd = _with_weights(model, best_snap,
+                                    lambda: wrapper.pre_stage(stage, graph))
+                if upd is not None:
+                    graph = upd
+                    if not epoch_rows:
+                        batches = wrapper.train_batches(graph)
+            patience_left = cfg.patience
+            for epoch in range(start_epoch if stage == 0 else 0, cfg.epochs):
+                t_step = time.perf_counter()
+                if epoch_rows:
+                    losses = [self.train_step(wrapper, opt, sched,
+                                              wrapper.make_batch(graph, x),
+                                              generator)
+                              for x in wrapper.epoch_xs(graph)]
                 else:
-                    patience_left -= cfg.eval_step
-                    if patience_left <= 0:
-                        break
-            # every 20th epoch whatever eval_step is: the mean over the
-            # epoch's steps under the epoch protocol, else the last batch's
-            # loss (cogdl_tpu/trainer/trainer.py:357,411-413)
-            if cfg.progress and epoch % 20 == 0:
-                shown = torch.stack(losses).mean() if epoch_rows else losses[-1]
-                print(f"epoch {epoch}: loss={float(shown):.4f}")
+                    if refresh and epoch > 0:
+                        batches = wrapper.train_batches(graph)
+                    losses = [self.train_step(wrapper, opt, sched, b,
+                                              generator)
+                              for b in batches]
+                if (epoch + 1) % cfg.eval_step == 0:
+                    # float() waits for the device, so this clock spans the
+                    # steps
+                    train_loss = float(torch.stack(losses).mean())
+                    t_eval = time.perf_counter()
+                    step_ms.append((t_eval - t_step) * 1e3 / len(losses))
+                    if cfg.nan_guard:
+                        if not np.isfinite(train_loss):
+                            # consecutive failures only — a recovered blip
+                            # resets
+                            nan_rollbacks += 1
+                            if nan_rollbacks > cfg.nan_guard_retries:
+                                raise RuntimeError(
+                                    f"training diverged: non-finite loss at "
+                                    f"epoch {epoch} persisted through "
+                                    f"{cfg.nan_guard_retries} rollbacks "
+                                    "(lower lr / enable grad_clip)")
+                            _restore(model, opt, sched, best_snap)
+                            print(f"nan_guard: non-finite loss at epoch "
+                                  f"{epoch}; rolled back to epoch "
+                                  f"{best_epoch} snapshot "
+                                  f"({nan_rollbacks}/{cfg.nan_guard_retries})")
+                            continue
+                        nan_rollbacks = 0
+                    metrics = wrapper.evaluate(graph)
+                    if monitor not in metrics:
+                        raise KeyError(
+                            f"early-stop monitor {monitor!r} not in eval "
+                            f"metrics {sorted(metrics)}")
+                    score = float(metrics[monitor]) * sign
+                    eval_ms.append((time.perf_counter() - t_eval) * 1e3)
+                    if score > best:
+                        best = score
+                        best_snap = _snapshot(model, opt, sched)
+                        best_epoch = epoch
+                        patience_left = cfg.patience
+                    else:
+                        patience_left -= cfg.eval_step
+                        if patience_left <= 0:
+                            break
+                # every 20th epoch whatever eval_step is: the mean over the
+                # epoch's steps under the epoch protocol, else the last
+                # batch's loss (cogdl_tpu/trainer/trainer.py:357,411-413)
+                if cfg.progress and epoch % 20 == 0:
+                    shown = (torch.stack(losses).mean() if epoch_rows
+                             else losses[-1])
+                    print(f"epoch {epoch}: loss={float(shown):.4f}")
+            if hasattr(wrapper, "post_stage"):
+                _with_weights(model, best_snap,
+                              lambda: wrapper.post_stage(stage, graph))
 
         if cfg.checkpoint_path:
             from .checkpoint import save_checkpoint
@@ -327,6 +368,9 @@ class Trainer:
         # wall-clock medians over the eval points (each ends in a device sync)
         result["train_step_ms"] = float(np.median(step_ms)) if step_ms else float("nan")
         result["eval_ms"] = float(np.median(eval_ms)) if eval_ms else float("nan")
+        if getattr(wrapper, "stage_record", None):
+            # what a staged wrapper did at each stage (labels it added)
+            result["stages"] = wrapper.stage_record
         result["_variables"] = best_snap[0]
         result["_graph"] = graph   # the prepared frame
         return result

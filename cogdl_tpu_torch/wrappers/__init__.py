@@ -3,9 +3,11 @@ owns the task-specific pieces (data preparation, loss, evaluation); the
 Trainer stays task-agnostic. Full-batch node classification and its
 sampled forms are ported so far: neighbor sampling on the host and on the
 device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); and graph
-classification over union batches (``graph_classification``), and
-heterogeneous node classification over metapath graphs
-(``heterogeneous_gnn``); the rest wait in ROADMAP.md §1."""
+classification over union batches (``graph_classification``) and over
+PATCHY-SAN's receptive fields (``patchy_san``), heterogeneous node
+classification over metapath graphs (``heterogeneous_gnn``), manifold
+mixup (``gcnmix``) and the multi-stage wrappers (``sagn_staged``,
+``m3s_staged``, ``correct_smooth``); the rest wait in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -31,6 +33,12 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
         "cogdl_tpu_torch.wrappers.graph_classification.GraphClfWrapper",
     "heterogeneous_gnn":
         "cogdl_tpu_torch.wrappers.heterogeneous.HeterogeneousGNNWrapper",
+    "gcnmix": "cogdl_tpu_torch.wrappers.node_classification.GCNMixWrapper",
+    "patchy_san":
+        "cogdl_tpu_torch.wrappers.graph_classification.PatchySANWrapper",
+    "sagn_staged": "cogdl_tpu_torch.wrappers.staged.SAGNWrapper",
+    "m3s_staged": "cogdl_tpu_torch.wrappers.staged.M3SWrapper",
+    "correct_smooth": "cogdl_tpu_torch.wrappers.staged.CorrectSmoothWrapper",
 }
 
 # model name → default wrapper
@@ -55,6 +63,9 @@ DEFAULT_WRAPPER = {
     "han": "heterogeneous_gnn", "gtn": "heterogeneous_gnn",
     "simple_hgn": "heterogeneous_gnn",
     "rgcn": "heterogeneous_gnn", "compgcn": "heterogeneous_gnn",
+    "graph_unet": "node_classification", "unet": "node_classification",
+    "gcnmix": "gcnmix", "sagn": "sagn_staged", "m3s": "m3s_staged",
+    "correct_smooth_mlp": "correct_smooth", "patchy_san": "patchy_san",
 }
 
 

@@ -1,12 +1,13 @@
 """Full-batch node classification wrapper — the port of
 ``cogdl_tpu/wrappers/node_classification.py`` (``NodeClfWrapper``): masked
 cross-entropy on the train nodes, accuracy (micro-F1 for multilabel ``y``)
-on train/val/test."""
+on train/val/test, and ``GCNMixWrapper``, its manifold-mixup form."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..data.graph import Graph, add_self_loops, row_norm, sym_norm
@@ -97,3 +98,28 @@ class NodeClfWrapper:
             else:
                 out[f"{split}_acc"] = masked_accuracy(logits, graph.y, mask)
         return out
+
+
+class GCNMixWrapper(NodeClfWrapper):
+    """Manifold mixup with the matching label mix — the port of
+    ``GCNMixWrapper``: ``lam·CE(logits, y) + (1 − lam)·CE(logits,
+    y[perm])`` over the train nodes, the logits from the model's
+    ``mixup_forward`` at ``(perm, lam)`` drawn by its ``draw_mixup``:
+    ``lam`` from a host ``numpy.random.Generator`` seeded with the run's
+    ``seed``, ``perm`` from the step's generator on the graph's device. No
+    draw touches torch's or numpy's global generator, and none waits for
+    the card."""
+
+    def __init__(self, model, dataset=None, seed: int = 0):
+        super().__init__(model, dataset)
+        self.rng = np.random.default_rng(seed)
+
+    def loss(self, graph: Graph, generator: Optional[torch.Generator] = None,
+             training: bool = True) -> torch.Tensor:
+        perm, lam = self.model.draw_mixup(graph, self.rng, generator)
+        logits = self.model.mixup_forward(graph, graph.x, perm, lam,
+                                          training=True, generator=generator)
+        mask = graph.train_mask & graph.node_mask()
+        return (lam * masked_cross_entropy(logits, graph.y, mask)
+                + (1.0 - lam) * masked_cross_entropy(logits, graph.y[perm],
+                                                     mask))

@@ -1,6 +1,7 @@
-"""cogdl_tpu_torch and chip_smoke.py import nothing of jax, flax, optax or
-the JAX package. A static scan: this process already holds jax, so a
-runtime ``sys.modules`` check would prove nothing."""
+"""cogdl_tpu_torch and chip_smoke.py import nothing of jax, flax, optax,
+scikit-learn (absent on the card's machine) or the JAX package. A static
+scan: this process already holds jax, so a runtime ``sys.modules`` check
+would prove nothing."""
 
 import ast
 import os
@@ -8,7 +9,7 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cogdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cogdl_tpu", "sklearn")
 
 
 def _sources():
