@@ -1,5 +1,6 @@
 // The PyTorch port's own copy of cogdl_tpu/native/graph_sampler.cpp, built by
-// cogdl_tpu_torch/native.py; sample_neighbors takes its thread count.
+// cogdl_tpu_torch/native.py; sample_neighbors and random_walk take their
+// thread count and split their work by it.
 //
 // Native host-side graph sampling runtime (C++17 + OpenMP).
 //
@@ -92,22 +93,36 @@ int sample_neighbors(const int64_t* indptr, const int64_t* indices,
 
 // Parallel uniform random walks with restart probability
 // (reference rwalk.c:7-38). out_walks[num_starts * walk_length].
-void random_walk(const int64_t* indptr, const int64_t* indices,
-                 const int64_t* starts, int64_t num_starts,
-                 int64_t walk_length, double restart_prob, uint64_t seed,
-                 int64_t* out_walks) {
-#pragma omp parallel
+// Runs on num_threads threads (the runtime's default when <= 0); thread t of
+// T walks the starts [num_starts*t/T, num_starts*(t+1)/T), in order, with its
+// own stream (seed, t+1): a step draws once for the restart test when
+// restart_prob > 0, then once for a neighbour when the node has an edge. So a
+// (seed, T) pair fixes the walks on any machine. Returns T, the thread count
+// it ran with.
+int random_walk(const int64_t* indptr, const int64_t* indices,
+                const int64_t* starts, int64_t num_starts,
+                int64_t walk_length, double restart_prob, uint64_t seed,
+                int num_threads, int64_t* out_walks) {
+  int ran = 1;
+  const uint64_t restart_cut =
+      (uint64_t)(restart_prob * (double)UINT64_MAX);
+#ifdef _OPENMP
+  const int nt = num_threads > 0 ? num_threads : omp_get_max_threads();
+#pragma omp parallel num_threads(nt)
+#endif
   {
 #ifdef _OPENMP
-    int tid = omp_get_thread_num();
+    const int tid = omp_get_thread_num();
+    const int nth = omp_get_num_threads();
 #else
-    int tid = 0;
+    const int tid = 0;
+    const int nth = 1;
 #endif
+    if (tid == 0) ran = nth;
     RngState st = seed_rng(seed, (uint64_t)tid + 1);
-    const uint64_t restart_cut =
-        (uint64_t)(restart_prob * (double)UINT64_MAX);
-#pragma omp for schedule(static)
-    for (int64_t i = 0; i < num_starts; ++i) {
+    const int64_t lo_i = num_starts * tid / nth;
+    const int64_t hi_i = num_starts * (tid + 1) / nth;
+    for (int64_t i = lo_i; i < hi_i; ++i) {
       int64_t cur = starts[i];
       out_walks[i * walk_length] = cur;
       for (int64_t t = 1; t < walk_length; ++t) {
@@ -123,6 +138,7 @@ void random_walk(const int64_t* indptr, const int64_t* indices,
       }
     }
   }
+  return ran;
 }
 
 // node2vec second-order biased walks via rejection sampling

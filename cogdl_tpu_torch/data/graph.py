@@ -252,8 +252,12 @@ def from_coo(
     et = (None if edge_type is None
           else _np(edge_type).astype(np.int32).reshape(E))
 
-    # sort by (row, col) → CSR order
-    order = np.lexsort((col, row))
+    # sort by (row, col) → CSR order, as a stable sort of one key: the
+    # order np.lexsort((col, row)) gives, and fast on the nearly sorted
+    # lists that a rebuild of a graph (add_self_loops) passes, where
+    # lexsort is not
+    span = max(N, int(col.max(initial=-1)) + 1)
+    order = np.argsort(row * span + col, kind="stable")
     row, col, w = row[order], col[order], w[order]
     if ea is not None:
         ea = ea[order]

@@ -1,10 +1,13 @@
 """Shared layer helpers — the port of ``cogdl_tpu/layers/utils.py``:
 activation lookup, the ``CDense`` linear layer with the JAX package's
 initialisation, generator-driven dropout, ``MaskedBatchNorm`` and
-``reset_parameters``, which re-initialises a whole model."""
+``reset_parameters``, which re-initialises a whole model; flax's
+learnable ``PReLU`` and ``frozen_copy``, a module's twin held in buffers
+(the EMA teachers of the self-supervised wrappers)."""
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -19,8 +22,11 @@ _ACTIVATIONS = {
     "elu": F.elu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
-    "leaky_relu": lambda x: F.leaky_relu(x, 0.2),
-    "prelu": lambda x: F.leaky_relu(x, 0.25),
+    # jax.nn.leaky_relu's form: at exactly 0 its gradient is 1, where
+    # F.leaky_relu's is the slope (a node whose inputs are all zero, such
+    # as GraphMAE's masked rows at a zero mask token, sits there)
+    "leaky_relu": lambda x: torch.where(x >= 0, x, 0.2 * x),
+    "prelu": lambda x: torch.where(x >= 0, x, 0.25 * x),
     "softplus": F.softplus,
     "identity": lambda x: x,
     "none": lambda x: x,
@@ -161,3 +167,54 @@ def reset_parameters(model: nn.Module,
             m.reset_parameters()
         elif hasattr(m, "reset_own_parameters"):
             m.reset_own_parameters(generator)
+
+
+class PReLU(nn.Module):
+    """flax ``nn.PReLU``: one learnable negative slope (``negative_slope``,
+    a scalar) that starts at 0.01, where ``torch.nn.PReLU`` starts at
+    0.25."""
+
+    def __init__(self, negative_slope_init: float = 0.01):
+        super().__init__()
+        self.negative_slope_init = negative_slope_init
+        self.negative_slope = nn.Parameter(torch.tensor(negative_slope_init))
+
+    def reset_own_parameters(self,
+                             generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.negative_slope.fill_(self.negative_slope_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+
+
+def frozen_copy(module: nn.Module) -> nn.Module:
+    """A deep copy of ``module`` whose parameters are buffers of the same
+    names: in its ``state_dict`` (a snapshot carries it), not in its
+    ``parameters()`` (no optimizer sees it). Its forward is the module's."""
+    twin = copy.deepcopy(module)
+    for m in twin.modules():
+        for name, p in list(m._parameters.items()):
+            if p is not None:
+                del m._parameters[name]
+                m.register_buffer(name, p.detach().clone())
+    return twin
+
+
+@torch.no_grad()
+def ema_(target: nn.Module, source: nn.Module, beta) -> None:
+    """Move every buffer of ``target`` (a :func:`frozen_copy`) toward the
+    tensor of the same name in ``source``'s ``state_dict``: ``t ← t·beta +
+    (1 − beta)·s``. ``beta`` is a float or a 0-d tensor on their device."""
+    src = source.state_dict()
+    for name, t in target.named_buffers():
+        t.mul_(beta).add_(src[name].detach() * (1.0 - beta))
+
+
+@torch.no_grad()
+def copy_into_(target: nn.Module, source: nn.Module) -> None:
+    """Set every buffer of ``target`` (a :func:`frozen_copy`) to the tensor
+    of the same name in ``source``'s ``state_dict``."""
+    src = source.state_dict()
+    for name, t in target.named_buffers():
+        t.copy_(src[name])

@@ -9,10 +9,12 @@ full-batch node-classification models ``gcnii``, ``appnp`` (alias
 ``gdc_gcn``, ``actgcn``, ``autognn``, ``disengcn`` and ``srgcn``, the
 graph classification models ``gin``, ``sortpool`` and ``diffpool``, and the
 heterogeneous models ``han``, ``gtn``, ``rgcn``, ``compgcn`` and
-``simple_hgn``, and the node-classification stragglers ``graph_unet``
+``simple_hgn``, the node-classification stragglers ``graph_unet``
 (alias ``unet``), ``gcnmix``, ``sagn``, ``m3s``, ``correct_smooth_mlp``
-and ``patchy_san``, are ported so far; every other name of the JAX registry waits in ROADMAP.md §1
-("Modules to port").
+and ``patchy_san``, and the self-supervised ``dgi``, ``mvgrl``, ``grace``,
+``graphmae``, ``graphmae2``, ``bgrl``, ``unsup_graphsage`` and
+``infograph``, are ported so far; every other name of the JAX registry
+waits in ROADMAP.md §1 ("Modules to port").
 """
 
 from __future__ import annotations
@@ -72,6 +74,14 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "correct_smooth_mlp":
         "cogdl_tpu_torch.models.nn.correct_smooth.CorrectSmoothMLP",
     "patchy_san": "cogdl_tpu_torch.models.nn.patchy_san.PatchySAN",
+    "dgi": "cogdl_tpu_torch.models.nn.dgi.DGI",
+    "mvgrl": "cogdl_tpu_torch.models.nn.mvgrl.MVGRL",
+    "grace": "cogdl_tpu_torch.models.nn.grace.GRACE",
+    "graphmae": "cogdl_tpu_torch.models.nn.graphmae.GraphMAE",
+    "graphmae2": "cogdl_tpu_torch.models.nn.graphmae2.GraphMAE2",
+    "bgrl": "cogdl_tpu_torch.models.nn.bgrl.BGRL",
+    "unsup_graphsage": "cogdl_tpu_torch.models.nn.graphsage.UnsupGraphSAGE",
+    "infograph": "cogdl_tpu_torch.models.nn.infograph.InfoGraph",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -95,7 +105,9 @@ def build_model(name: str, **kwargs) -> Any:
 
 
 def load_jax_params(model: Module, params: Mapping,
-                    batch_stats: Optional[Mapping] = None) -> Module:
+                    batch_stats: Optional[Mapping] = None,
+                    teacher: Optional[Mapping] = None,
+                    ema: Optional[Mapping] = None) -> Module:
     """Fill ``model`` in place from the JAX package's flax variables, given
     as nested dicts of arrays (``variables["params"]`` and, for batch norm,
     ``variables["batch_stats"]``).
@@ -108,8 +120,21 @@ def load_jax_params(model: Module, params: Mapping,
     in, k] by an explicit permutation (PATCHY-SAN's ``conv1``, ``conv2``); a
     LayerNorm ``scale`` and an ``nn.Embed`` ``embedding`` (CompGCN's
     ``ent``) become the torch module's ``weight``; every other leaf keeps its
-    name and shape (GAT's ``a_src``/``a_dst`` [1, H, D]). Raises if a parameter of the
-    model is left unfilled or a leaf has no place in it."""
+    name and shape (GAT's ``a_src``/``a_dst`` [1, H, D], flax ``PReLU``'s
+    scalar ``negative_slope``, GraphMAE's ``mask_token`` [1, F]). flax's
+    automatic names (``Dense_0``, ``PReLU_0``, ``layers_1`` inside an
+    ``nn.Sequential``) are the port's module names.
+
+    The self-supervised state: ``teacher``, the JAX wrapper's
+    ``variables["teacher"]``, fills the model's ``teacher`` buffers, from
+    ``{"params": …, "batch_stats": …}`` (BGRL's encoder) or from a tree of
+    parameters (GraphMAE2's ``enc`` and ``proj``); ``ema``
+    (``variables["ema"]``) fills ``ema_step``. The self-auxiliary wrapper's
+    ``{"model": …, "aux": …}`` fills the model from ``model`` and its
+    ``aux`` head (attached by the wrapper's ``init``) from ``aux``.
+
+    Raises if a parameter of the model (or, when ``teacher`` is given, a
+    teacher buffer) is left unfilled or a leaf has no place in it."""
     state: Dict[str, torch.Tensor] = {}
 
     def _submodule(path: str):
@@ -138,12 +163,26 @@ def load_jax_params(model: Module, params: Mapping,
             else:
                 state[path] = t
 
-    walk(params, "", True)
+    if set(params) == {"model", "aux"} and _submodule("model") is None:
+        # the self-auxiliary wrapper's tree: the encoder's and its head's
+        walk(params["model"], "", True)
+        walk(params["aux"], "aux.", True)
+    else:
+        walk(params, "", True)
     if batch_stats is not None:
         walk(batch_stats, "", False)
+    if teacher is not None:
+        if "params" in teacher:
+            walk(teacher["params"], "teacher.", True)
+            walk(teacher.get("batch_stats", {}), "teacher.", False)
+        else:
+            walk(teacher, "teacher.", True)
+    if ema is not None:
+        state["ema_step"] = torch.tensor(float(np.asarray(ema["step"])))
     result = model.load_state_dict(state, strict=False)
     param_names = {n for n, _ in model.named_parameters()}
-    missing = [k for k in result.missing_keys if k in param_names]
+    missing = [k for k in result.missing_keys if k in param_names
+               or (teacher is not None and k.startswith("teacher."))]
     if missing or result.unexpected_keys:
         raise KeyError(f"load_jax_params: unfilled parameters {missing}, "
                        f"leaves with no place {result.unexpected_keys}")

@@ -5,6 +5,14 @@ embedding ``Z`` (ReLU, ``hidden_size``) and the soft assignment ``S`` to
 segment sums over ``graph_id``, ``AS`` by ``spmm`` (K1 at F = clusters on
 the card), then two dense layers run on the pooled graphs and their mean
 feeds the classifier.
+
+The pooled graphs are computed in float64: the two pooling sums (the
+products of two float32 values are exact there) and the two dense layers
+over them, whose mean rounds to float32 once before the classifier. The
+unnormalised ``SᵀAS`` drives the logits to 1e7 and more; in float32 the
+rounding of these few ``[G, C, H]`` values showed in the logits, and on
+the card so did the order in which ``index_add``'s threads arrive, from
+one run to the next. The GCN layers stay float32 (K1 on the card).
 """
 
 from __future__ import annotations
@@ -50,18 +58,20 @@ class DiffPool(nn.Module):
         z = self.embed(graph, x, training)                      # [N, H]
         s = torch.softmax(self.assign(graph, x, training), dim=-1)
         s = s * graph.node_mask().to(z.dtype)[:, None]          # [N, C]
+        s64 = s.double()
         # X' = SᵀZ per graph, (graph, cluster) flattened into one axis
-        pooled = seg.segment_sum((s[:, :, None] * z[:, None, :]).reshape(
-            -1, C * H), graph_id, G).reshape(G, C, H)
+        h = seg.segment_sum((s64[:, :, None] * z.double()[:, None, :])
+                            .reshape(-1, C * H), graph_id, G).reshape(G, C, H)
         # A' = Sᵀ(AS) per graph
         a_s = spmm(graph, s)                                    # [N, C]
-        a_pool = seg.segment_sum((s[:, :, None] * a_s[:, None, :]).reshape(
-            -1, C * C), graph_id, G).reshape(G, C, C)
-        h = pooled
+        a_pool = seg.segment_sum((s64[:, :, None] * a_s.double()[:, None, :])
+                                 .reshape(-1, C * C), graph_id, G).reshape(
+            G, C, C)
         for i in range(2):
-            h = F.relu(torch.einsum("gcd,gdh->gch", a_pool,
-                                    getattr(self, f"dense{i}")(h)))
-        hg = h.mean(dim=1)                                      # [G, H]
+            d = getattr(self, f"dense{i}")
+            h = F.relu(torch.einsum("gcd,gdh->gch", a_pool, F.linear(
+                h, d.weight.double(), d.bias.double())))
+        hg = h.mean(dim=1).to(z.dtype)                          # [G, H]
         if self.dropout > 0 and training:
             hg = dropout(hg, self.dropout, generator)
         return self.out(hg)

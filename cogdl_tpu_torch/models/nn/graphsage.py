@@ -1,5 +1,6 @@
 """GraphSAGE — the port of ``cogdl_tpu/models/nn/graphsage.py``
-(``GraphSAGE``; ``UnsupGraphSAGE`` waits for its wrapper).
+(``GraphSAGE``, and ``UnsupGraphSAGE``, the same encoder, which the
+``unsup_graphsage`` wrapper trains without labels).
 
 Forward contract: ``model(graph, x=None, training=False, generator=None)
 -> logits[n_pad, C]``; ``graph`` is a Graph (full batch) or a sequence of
@@ -59,4 +60,16 @@ class GraphSAGE(nn.Module):
         """Layer-wise full-graph inference: each layer runs over the whole
         graph before the next, O(num_layers · E) instead of O(fanout^L) a
         node."""
+        return self(graph, x, training=False)
+
+
+class UnsupGraphSAGE(GraphSAGE):
+    """The same encoder, trained with the random-walk co-occurrence loss of
+    ``wrappers/self_supervised.UnsupGraphSAGEWrapper``. Its default
+    ``aggr="mean"`` runs torch index ops, no kernel of ours."""
+
+    def embed(self, graph: Graph,
+              x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The frozen embeddings the probe reads: the encoder over the
+        whole graph, training off."""
         return self(graph, x, training=False)

@@ -10,13 +10,14 @@ renames it into place, so processes that build at once never load a
 half-written library. A failed build raises with g++'s output; nothing gives
 way to numpy.
 
-``sample_neighbors`` is bound now; the file's walks, ``induced_subgraph``
-and ``coo2csr`` wait for the modules that call them (ROADMAP.md §1, items
-12-14). Its draws are fixed by ``(seed, num_threads)``: thread ``t`` of
-``T`` takes the seeds ``[n·t/T, n·(t+1)/T)`` with its own xorshift128+
-stream seeded ``(seed, t + 1)``. :func:`sample_neighbors_reference` is the
-plain version, a numpy replay of the same streams that gives the same draws
-bit for bit.
+``sample_neighbors`` and ``random_walk`` are bound now; the file's
+``node2vec_walk``, ``induced_subgraph`` and ``coo2csr`` wait for the modules
+that call them (ROADMAP.md §1, item 13h). The draws of each are fixed by
+``(seed, num_threads)``: thread ``t`` of ``T`` takes the seeds (or walk
+starts) ``[n·t/T, n·(t+1)/T)`` with its own xorshift128+ stream seeded
+``(seed, t + 1)``. :func:`sample_neighbors_reference` and
+:func:`random_walk_reference` are the plain versions, numpy replays of the
+same streams that give the same draws bit for bit.
 """
 
 from __future__ import annotations
@@ -91,6 +92,10 @@ def load_library() -> ctypes.CDLL:
                                      ctypes.c_int64, ctypes.c_uint64,
                                      ctypes.c_int, i64p, u8p]
     lib.sample_neighbors.restype = ctypes.c_int
+    lib.random_walk.argtypes = [i64p, i64p, i64p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_double,
+                                ctypes.c_uint64, ctypes.c_int, i64p]
+    lib.random_walk.restype = ctypes.c_int
     lib.omp_max_threads.argtypes = []
     lib.omp_max_threads.restype = ctypes.c_int
     return lib
@@ -188,3 +193,102 @@ def sample_neighbors_reference(indptr, indices, seeds, fanout: int, seed: int,
         src[idx] = indices[lo[idx, None] + off]
         mask[idx] = True
     return src.ravel(), mask.ravel()
+
+
+def _check_walks(indptr: np.ndarray, starts: np.ndarray, walk_length: int,
+                 restart_prob: float, num_threads: int) -> None:
+    if walk_length < 1:
+        raise ValueError(f"random_walk: walk_length must be >= 1, got "
+                         f"{walk_length}")
+    if not 0.0 <= restart_prob < 1.0:
+        raise ValueError(f"random_walk: restart_prob must lie in [0, 1), "
+                         f"got {restart_prob}")
+    if num_threads < 1:
+        raise ValueError(f"random_walk: num_threads must be >= 1, got "
+                         f"{num_threads}")
+    n_nodes = indptr.shape[0] - 1
+    if starts.size and (starts.min() < 0 or starts.max() >= n_nodes):
+        raise ValueError(f"random_walk: start ids must lie in [0, "
+                         f"{n_nodes}), got [{starts.min()}, {starts.max()}]")
+
+
+def random_walk(indptr, indices, starts, walk_length: int, seed: int,
+                num_threads: int, restart_prob: float = 0.0) -> np.ndarray:
+    """Uniform random walks over the CSR from every start on
+    ``num_threads`` OpenMP threads: ``int64 [len(starts), walk_length]``,
+    column 0 the starts. A step returns to the walk's start with
+    probability ``restart_prob``, else moves to a uniform neighbour (a node
+    without an edge stays put). Raises if OpenMP ran another thread count
+    than asked for."""
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int64)
+    starts = np.ascontiguousarray(starts, np.int64)
+    walk_length, num_threads = int(walk_length), int(num_threads)
+    _check_walks(indptr, starts, walk_length, restart_prob, num_threads)
+    n = starts.shape[0]
+    out = np.empty((n, walk_length), np.int64)
+    ran = load_library().random_walk(indptr, indices, starts, n, walk_length,
+                                     float(restart_prob),
+                                     int(seed) & _MASK64, num_threads,
+                                     out.reshape(-1))
+    if ran != num_threads:
+        raise RuntimeError(f"random_walk ran on {ran} OpenMP threads, "
+                           f"{num_threads} asked for")
+    return out
+
+
+def random_walk_reference(indptr, indices, starts, walk_length: int,
+                          seed: int, num_threads: int,
+                          restart_prob: float = 0.0) -> np.ndarray:
+    """Plain version of :func:`random_walk`: the ``num_threads`` streams
+    replayed in numpy, every thread's walks advanced together, a stream
+    drawing only where its thread's walk draws (the restart test when
+    ``restart_prob > 0``, then a neighbour where the node has an edge).
+    Gives the library's walks bit for bit."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    starts = np.asarray(starts, np.int64)
+    T, L = int(num_threads), int(walk_length)
+    _check_walks(indptr, starts, L, restart_prob, T)
+    n = starts.shape[0]
+    out = np.empty((n, L), np.int64)
+    out[:, 0] = starts
+    # C++'s (uint64_t)(p * (double)UINT64_MAX); the double is 2**64
+    cut = np.uint64(int(restart_prob * float(2 ** 64)))
+    bounds = n * np.arange(T + 1, dtype=np.int64) // T
+    with np.errstate(over="ignore"):
+        state = [np.full(T, np.uint64(int(seed) & _MASK64)
+                         ^ np.uint64(0x9E3779B97F4A7C15)),
+                 np.arange(1, T + 1, dtype=np.uint64)
+                 * np.uint64(0xBF58476D1CE4E5B9) + np.uint64(1)]
+        for _ in range(8):
+            _xorshift_next(state)
+
+        def draw(mask):
+            """One number from the streams of ``mask``; the others wait."""
+            sub = [state[0][mask], state[1][mask]]
+            vals = np.zeros(T, np.uint64)
+            vals[mask] = _xorshift_next(sub)
+            state[0][mask], state[1][mask] = sub
+            return vals
+
+        for k in range(int((bounds[1:] - bounds[:-1]).max(initial=0))):
+            live = bounds[:-1] + k < bounds[1:]
+            rows = np.minimum(bounds[:-1] + k, max(n - 1, 0))
+            cur = starts[rows].copy()
+            for t in range(1, L):
+                move = live.copy()
+                if restart_prob > 0.0:
+                    r = draw(live)
+                    move &= ~(r < cut)
+                    cur = np.where(live & (r < cut), starts[rows], cur)
+                lo = indptr[cur]
+                deg = indptr[cur + 1] - lo
+                step = move & (deg > 0)
+                d = draw(step)
+                off = (d % np.maximum(deg, 1).astype(np.uint64)).astype(
+                    np.int64)
+                cur = np.where(step, indices[np.where(step, lo + off, 0)],
+                               cur)
+                out[rows[live], t] = cur[live]
+    return out

@@ -15,11 +15,14 @@ from ..layers.utils import dropout_keep as _keep
 
 
 def drop_edge(graph: Graph, rate: float,
-              generator: Optional[torch.Generator] = None) -> Graph:
+              generator: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> Graph:
     """DropEdge as a weight mask, the kept weights scaled by ``1 /
     (1 - rate)``; clears the norm tag. A kernel structure on the graph takes
-    the new weights (``Graph.with_edge_weight``)."""
-    keep = _keep(graph.edge_weight.shape, rate, graph.device, generator)
+    the new weights (``Graph.with_edge_weight``). ``keep``: the mask, drawn
+    ahead (``[e_pad]`` bool), instead of a draw from ``generator``."""
+    if keep is None:
+        keep = _keep(graph.edge_weight.shape, rate, graph.device, generator)
     w = graph.edge_weight * keep / max(1.0 - rate, 1e-6)
     return graph.with_edge_weight(w).replace(
         meta=tuple((k, v) for k, v in graph.meta if k != "norm"))
@@ -33,9 +36,13 @@ def drop_node(x: torch.Tensor, rate: float,
 
 
 def drop_feature(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Column-wise feature masking (GRACE augmentation), unscaled."""
-    return x * _keep((1, x.shape[1]), rate, x.device, generator)
+                 generator: Optional[torch.Generator] = None,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Column-wise feature masking (GRACE augmentation), unscaled.
+    ``keep``: the ``[1, F]`` mask, drawn ahead, instead of a draw."""
+    if keep is None:
+        keep = _keep((1, x.shape[1]), rate, x.device, generator)
+    return x * keep
 
 
 def add_gaussian_noise(x: torch.Tensor, sigma: float,

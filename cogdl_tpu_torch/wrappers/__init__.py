@@ -6,8 +6,11 @@ device, ClusterGCN (``cluster``) and GraphSAINT (``graphsaint``); and graph
 classification over union batches (``graph_classification``) and over
 PATCHY-SAN's receptive fields (``patchy_san``), heterogeneous node
 classification over metapath graphs (``heterogeneous_gnn``), manifold
-mixup (``gcnmix``) and the multi-stage wrappers (``sagn_staged``,
-``m3s_staged``, ``correct_smooth``); the rest wait in ROADMAP.md §1."""
+mixup (``gcnmix``), the multi-stage wrappers (``sagn_staged``,
+``m3s_staged``, ``correct_smooth``), and the self-supervised ones
+(``dgi``, ``grace``, ``graphmae``, ``graphmae2``, ``bgrl``,
+``unsup_graphsage``, ``self_auxiliary``, ``infograph``); the rest wait in
+ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -39,6 +42,17 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "sagn_staged": "cogdl_tpu_torch.wrappers.staged.SAGNWrapper",
     "m3s_staged": "cogdl_tpu_torch.wrappers.staged.M3SWrapper",
     "correct_smooth": "cogdl_tpu_torch.wrappers.staged.CorrectSmoothWrapper",
+    "dgi": "cogdl_tpu_torch.wrappers.self_supervised.DGIWrapper",
+    "grace": "cogdl_tpu_torch.wrappers.self_supervised.GRACEWrapper",
+    "graphmae": "cogdl_tpu_torch.wrappers.self_supervised.GraphMAEWrapper",
+    "graphmae2": "cogdl_tpu_torch.wrappers.self_supervised.GraphMAE2Wrapper",
+    "bgrl": "cogdl_tpu_torch.wrappers.self_supervised.BGRLWrapper",
+    "unsup_graphsage":
+        "cogdl_tpu_torch.wrappers.self_supervised.UnsupGraphSAGEWrapper",
+    "self_auxiliary":
+        "cogdl_tpu_torch.wrappers.self_supervised.SelfAuxiliaryWrapper",
+    "infograph":
+        "cogdl_tpu_torch.wrappers.graph_classification.InfoGraphWrapper",
 }
 
 # model name → default wrapper
@@ -66,6 +80,9 @@ DEFAULT_WRAPPER = {
     "graph_unet": "node_classification", "unet": "node_classification",
     "gcnmix": "gcnmix", "sagn": "sagn_staged", "m3s": "m3s_staged",
     "correct_smooth_mlp": "correct_smooth", "patchy_san": "patchy_san",
+    "dgi": "dgi", "grace": "grace", "mvgrl": "dgi", "graphmae": "graphmae",
+    "bgrl": "bgrl", "graphmae2": "graphmae2",
+    "unsup_graphsage": "unsup_graphsage", "infograph": "infograph",
 }
 
 

@@ -10,20 +10,25 @@ single graph to move, hands it the device (:meth:`to_device`). There each
 batch gets the kernels' structure on the host (``prepare_spmm``, once: the
 list never changes) when the model reads it, and is copied to the device.
 ``PatchySANWrapper`` (PATCHY-SAN's receptive fields) holds its tensors the
-same way.
+same way. ``InfoGraphWrapper`` trains InfoGraph on the same batches
+without labels and probes its graph embeddings with an SVC
+(``utils/svm.py``, no scikit-learn).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.batch import make_batches
 from ..data.graph import Graph
 from ..ops.cuda import prepare_spmm
 from ..utils.evaluator import masked_cross_entropy
+from ..utils.svm import cross_val_accuracy
 from .sampled_node_classification import reads_kernel_structure
 
 SPLITS = ("train", "val", "test")
@@ -100,6 +105,57 @@ class GraphClfWrapper:
                 total = total + m.sum()
             out[f"{split}_acc"] = correct / total.clamp_min(1.0)
         return out
+
+
+class InfoGraphWrapper(GraphClfWrapper):
+    """InfoGraph (the port of ``InfoGraphWrapper``): the Jensen-Shannon
+    mutual-information objective between node and graph summaries over each
+    union batch, ``E_neg[softplus(T)] − E_pos[−softplus(−T)]`` over the
+    ``[N, G]`` grid masked to real nodes and graphs; evaluated by
+    ``cross_val_score(SVC(), X, y, cv=3)``'s mean accuracy
+    (``utils/svm.cross_val_accuracy``) over the standardised embeddings of
+    every graph of the three splits. The embeddings come from the device;
+    the SVC runs on the host in float64 (``probe_ms`` its own time)."""
+
+    def loss(self, batch: Graph, generator: Optional[torch.Generator] = None,
+             training: bool = True) -> torch.Tensor:
+        scores = self.model.mi_scores(batch, batch.x, training)   # [N, G]
+        graph_id = batch.extras["graph_id"].long()
+        G = scores.shape[1]
+        pos = (graph_id[:, None] == torch.arange(
+            G, device=scores.device)[None, :]).to(scores.dtype)
+        valid = (batch.node_mask()[:, None]
+                 & batch.extras["graph_mask"][None, :]).to(scores.dtype)
+        pos_term = (-F.softplus(-scores) * pos * valid).sum() / (
+            pos * valid).sum().clamp_min(1.0)
+        neg = (1 - pos) * valid
+        neg_term = (F.softplus(scores) * neg).sum() / neg.sum().clamp_min(1.0)
+        return neg_term - pos_term
+
+    @torch.no_grad()
+    def embeddings(self):
+        """Every real graph's embedding (float64, on the host) and label,
+        over the batches of the three splits in order."""
+        embs, labels = [], []
+        for split in SPLITS:
+            for b in self._batches[split]:
+                m = b.extras["graph_mask"]
+                embs.append(self.model(b, b.x, training=False)[m])
+                labels.append(b.extras["graph_y"][m])
+        return (torch.cat(embs).double().cpu().numpy(),
+                torch.cat(labels).cpu().numpy())
+
+    @staticmethod
+    def standardize(X: np.ndarray) -> np.ndarray:
+        return (X - X.mean(0)) / np.maximum(X.std(0), 1e-8)
+
+    def evaluate(self, graph=None) -> Dict[str, float]:
+        X, y = self.embeddings()
+        t0 = time.perf_counter()
+        acc = float(np.mean(cross_val_accuracy(self.standardize(X), y,
+                                               cv=3)))
+        return {"val_acc": acc, "test_acc": acc,
+                "probe_ms": (time.perf_counter() - t0) * 1e3}
 
 
 class PatchySANWrapper:

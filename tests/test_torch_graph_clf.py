@@ -483,3 +483,33 @@ def test_official_split_is_honoured():
                         hidden_size=16, batch_size=4, device="cpu"
                         )[("official", "gin")]
     assert 0.0 <= res["test_acc"] <= 1.0
+
+
+def test_diffpool_logits_do_not_depend_on_the_pooling_sums_order(
+        monkeypatch):
+    """The order in which DiffPool's pooling sums add a graph's nodes (on
+    the card, the order ``index_add``'s threads arrive in) leaves its
+    logits as they are, even where the unnormalised pooling drives them
+    past 1e5: the pooled part runs in float64."""
+    import types
+
+    import cogdl_tpu_torch.models.nn.diffpool as diffpool
+
+    graphs, labels = t_rg(num_graphs=64, min_nodes=10, max_nodes=50,
+                          feat_dim=37, num_classes=2, seed=0)
+    b = union_batch(graphs, labels)
+    m = build_model("diffpool", in_features=37, out_features=2, dropout=0.0,
+                    hidden_size=64, num_clusters=8)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = m(b)[b.extras["graph_mask"]]
+    real = diffpool.seg.segment_sum
+    # DiffPool's own pooling sums only: K1's plain version sums with the
+    # same function
+    monkeypatch.setattr(diffpool, "seg", types.SimpleNamespace(
+        segment_sum=lambda data, ids, n, sorted=True: real(
+            data.flip(0), ids.flip(0), n)))
+    with torch.no_grad():
+        got = m(b)[b.extras["graph_mask"]]
+    assert float(ref.abs().max()) > 1e5
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
