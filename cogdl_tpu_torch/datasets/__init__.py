@@ -1,8 +1,9 @@
 """Dataset registry — the port of ``cogdl_tpu/datasets/__init__.py`` for the
 offline synthetic names and the heterogeneous loaders. ``build_dataset(name)``
-returns a :class:`Dataset` holding one CPU graph, or for ``random-graphs`` a
-list of small CPU graphs with their labels; the trainer (or, for a list, the
-graph classification wrapper) moves them to the device.
+returns a :class:`Dataset` holding one CPU graph, for ``random-graphs`` a
+list of small CPU graphs with their labels, or for ``random-kg`` a dict of
+KG triples; the trainer (or, for a list, the graph classification wrapper)
+moves them to the device.
 
 The loaders of :data:`SUPPORTED_DATASETS` read local files under
 ``$COGDL_TPU_DATA/<name>/raw`` (default ``~/.cogdl_tpu``), as the JAX
@@ -33,14 +34,15 @@ SUPPORTED_DATASETS: Dict[str, str] = {
 }
 
 OFFLINE_NAMES = ("sbm | sbm-small | sbm-large | powerlaw-<N>[k|m] | "
-                 "random-graphs | hetero-sbm")
+                 "random-graphs | hetero-sbm | random-kg")
 
 
 def build_dataset(name: str, **kwargs) -> Dataset:
     """Resolve a dataset by name: the synthetic families (``sbm``,
     ``sbm-large``, ``powerlaw-<N>[k|m]``, ``random-graphs``,
-    ``hetero-sbm``) or a loader of :data:`SUPPORTED_DATASETS`. Other names
-    of the JAX registry are not yet ported and raise."""
+    ``hetero-sbm``, ``random-kg``: KG triples, no graph) or a loader of
+    :data:`SUPPORTED_DATASETS`. Other names of the JAX registry are not yet
+    ported and raise."""
     from . import synthetic as syn
 
     if name in ("sbm", "sbm-small"):
@@ -59,6 +61,8 @@ def build_dataset(name: str, **kwargs) -> Dataset:
         return Dataset.from_graphs(graphs, labels=labels, name=name)
     if name == "hetero-sbm":
         return Dataset.from_graph(syn.hetero_sbm_graph(**kwargs), name=name)
+    if name == "random-kg":
+        return Dataset.from_triples(syn.random_triples(**kwargs), name=name)
     if name in SUPPORTED_DATASETS:
         module_path, fn_name = SUPPORTED_DATASETS[name].rsplit(".", 1)
         fn = getattr(importlib.import_module(module_path), fn_name)

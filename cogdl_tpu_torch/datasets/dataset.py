@@ -1,12 +1,18 @@
-"""Dataset container — the port of the graph halves of
-``cogdl_tpu/datasets/dataset.py``: one graph (node-level tasks), or a list
-of graphs with their labels and an optional official split (graph-level
-tasks)."""
+"""Dataset container — the port of ``cogdl_tpu/datasets/dataset.py``: one
+graph (node-level tasks), a list of graphs with their labels and an
+optional official split (graph-level tasks), or a dict of KG triples
+(``from_triples``: ``train`` / ``valid`` / ``test`` ``[n, 3]`` arrays,
+``num_entities``, ``num_relations``; no features, no classes).
+
+``link_split``, an attribute a loader may set (the JAX package's OGB link
+loader does), holds official evaluation pairs for the link-prediction
+wrapper: ``{"valid" | "test": (pos, neg)}``, each ``[n, 2]`` or ``[2, n]``,
+``neg`` possibly None."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,7 +29,9 @@ class Dataset:
     # official split of a multi-graph set: "train", "valid" (or "val") and
     # "test" index arrays, which the graph classification wrapper honours
     split_idx: Optional[Dict[str, np.ndarray]] = None
+    triples: Optional[Dict[str, Any]] = None
     metric: str = "accuracy"
+    link_split: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_graph(cls, graph: Graph, name: str = "dataset",
@@ -35,6 +43,10 @@ class Dataset:
                     name: str = "dataset", split_idx=None):
         return cls(name=name, graphs=graphs, labels=labels,
                    split_idx=split_idx)
+
+    @classmethod
+    def from_triples(cls, triples: Dict[str, Any], name: str = "dataset"):
+        return cls(name=name, triples=triples, metric="mrr")
 
     def _first(self) -> Optional[Graph]:
         if self.graph is not None:
@@ -66,4 +78,6 @@ class Dataset:
     def __repr__(self):
         if self.graphs is not None:
             return f"Dataset({self.name}, {len(self.graphs)} graphs)"
+        if self.triples is not None:
+            return f"Dataset({self.name}, KG triples)"
         return f"Dataset({self.name}, {self.graph})"

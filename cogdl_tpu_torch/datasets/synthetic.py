@@ -302,3 +302,41 @@ def hetero_sbm_graph(
     return g.replace(extras={"node_type": torch.from_numpy(nt),
                              "metapath_graphs": metas,
                              "relation_graphs": metas})
+
+
+def random_triples(
+    num_entities: int = 200,
+    num_relations: int = 12,
+    num_triples: int = 2000,
+    structured: float = 0.8,
+    seed: int = 0,
+):
+    """KG triple set with a train / valid / test split (an FB15k stand-in):
+    int32 ``[n, 3]`` arrays of ``(head, relation, tail)`` under ``train``,
+    ``valid`` and ``test`` (80 / 10 / 10 of the distinct triples), with
+    ``num_entities`` and ``num_relations``. A ``structured`` fraction of
+    the tails follows a learnable rule (each relation a fixed cyclic shift
+    of the entity ids, the additive structure TransE models), the rest is
+    noise. The JAX package's sets for the same arguments, array for
+    array."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, num_entities, num_triples)
+    r = rng.integers(0, num_relations, num_triples)
+    shifts = rng.integers(1, num_entities, num_relations)
+    t_rule = (h + shifts[r]) % num_entities
+    t_noise = rng.integers(0, num_entities, num_triples)
+    use_rule = rng.random(num_triples) < structured
+    t = np.where(use_rule, t_rule, t_noise)
+    triples = np.unique(np.stack([h, r, t], 1).astype(np.int32), axis=0)
+    num_triples = triples.shape[0]
+    rng.shuffle(triples)
+    perm = rng.permutation(num_triples)
+    n_tr = int(0.8 * num_triples)
+    n_va = int(0.1 * num_triples)
+    return {
+        "train": triples[perm[:n_tr]],
+        "valid": triples[perm[n_tr: n_tr + n_va]],
+        "test": triples[perm[n_tr + n_va:]],
+        "num_entities": num_entities,
+        "num_relations": num_relations,
+    }

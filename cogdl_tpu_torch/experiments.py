@@ -51,7 +51,9 @@ def set_best_config(model: str, dataset: str, kwargs: Dict) -> Dict:
 
 def _setup_variant(ds, model, seed, wrapper, kwargs):
     """Split kwargs by consumer and build ``(wrapper, model,
-    trainer_kwargs)``."""
+    trainer_kwargs)``; for a wrapper that owns its whole loop
+    (``run_embedding``: the KG triple embeddings) ``model`` is None and the
+    wrapper builds its model from the kwargs no trainer takes."""
     wrapper_cls = fetch_wrapper(wrapper or default_wrapper_for(model))
     wrapper_keys = set(inspect.signature(wrapper_cls.__init__).parameters) - {
         "self", "model", "dataset", "kwargs"}
@@ -63,6 +65,9 @@ def _setup_variant(ds, model, seed, wrapper, kwargs):
     trainer_kwargs["seed"] = seed
     if "seed" in wrapper_keys:
         wrapper_kwargs.setdefault("seed", seed)
+    if hasattr(wrapper_cls, "run_embedding"):
+        return (wrapper_cls(model_name=model, dataset=ds, **wrapper_kwargs,
+                            **model_kwargs), None, trainer_kwargs)
     out_features = ds.num_classes
     if out_features is None:
         out_features = model_kwargs.get("hidden_size", 64)
@@ -92,7 +97,9 @@ def train(
     ds = build_dataset(dataset) if isinstance(dataset, str) else dataset
     if use_best_config:
         kwargs = set_best_config(model, ds.name, kwargs)
-    w, _, trainer_kwargs = _setup_variant(ds, model, seed, wrapper, kwargs)
+    w, mdl, trainer_kwargs = _setup_variant(ds, model, seed, wrapper, kwargs)
+    if mdl is None:
+        return w.run_embedding(trainer_kwargs.get("device"))
     result = Trainer(TrainerConfig(**trainer_kwargs)).run(w, ds.graph)
     result.pop("_variables", None)
     result.pop("_graph", None)

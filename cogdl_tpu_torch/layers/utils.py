@@ -99,7 +99,9 @@ class CDense(nn.Linear):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         # flax lecun_normal: truncated normal whose std is corrected for the
         # truncation at ±2σ
-        std = math.sqrt(1.0 / self.in_features) / 0.87962566103423978
+        # (a zero-width weight, the placeholder encoder experiment() builds
+        # for a features-less KG set, has nothing to draw)
+        std = math.sqrt(1.0 / max(self.in_features, 1)) / 0.87962566103423978
         with torch.no_grad():
             nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)

@@ -13,8 +13,11 @@ heterogeneous models ``han``, ``gtn``, ``rgcn``, ``compgcn`` and
 (alias ``unet``), ``gcnmix``, ``sagn``, ``m3s``, ``correct_smooth_mlp``
 and ``patchy_san``, and the self-supervised ``dgi``, ``mvgrl``, ``grace``,
 ``graphmae``, ``graphmae2``, ``bgrl``, ``unsup_graphsage`` and
-``infograph``, are ported so far; every other name of the JAX registry
-waits in ROADMAP.md §1 ("Modules to port").
+``infograph``, the link-prediction and clustering encoders ``gae``,
+``vgae``, ``agc`` and ``daegc``, and the KG triple embeddings ``transe``,
+``distmult``, ``rotate`` and ``complex`` (plain objects that train
+themselves, not modules), are ported so far; every other name of the JAX
+registry waits in ROADMAP.md §1 ("Modules to port").
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "bgrl": "cogdl_tpu_torch.models.nn.bgrl.BGRL",
     "unsup_graphsage": "cogdl_tpu_torch.models.nn.graphsage.UnsupGraphSAGE",
     "infograph": "cogdl_tpu_torch.models.nn.infograph.InfoGraph",
+    "gae": "cogdl_tpu_torch.models.nn.gae.GAE",
+    "vgae": "cogdl_tpu_torch.models.nn.gae.VGAE",
+    "agc": "cogdl_tpu_torch.models.nn.agc.AGC",
+    "daegc": "cogdl_tpu_torch.models.nn.daegc.DAEGC",
+    "transe": "cogdl_tpu_torch.models.emb.knowledge_base.TransE",
+    "distmult": "cogdl_tpu_torch.models.emb.knowledge_base.DistMult",
+    "rotate": "cogdl_tpu_torch.models.emb.knowledge_base.RotatE",
+    "complex": "cogdl_tpu_torch.models.emb.knowledge_base.ComplEx",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -90,7 +101,8 @@ def build_model(name: str, **kwargs) -> Any:
     """Instantiate a registered model by name. Keyword arguments the model
     does not declare are dropped, as in the JAX package (a shared
     hyper-parameter such as ``hidden_size`` is ignored by models without
-    it)."""
+    it). The model keeps ``registry_name`` and ``build_kwargs``, its
+    arguments with their defaults."""
     try:
         path = SUPPORTED_MODELS[name]
     except KeyError:
@@ -100,8 +112,17 @@ def build_model(name: str, **kwargs) -> Any:
             "'Modules to port'") from None
     module_path, cls_name = path.rsplit(".", 1)
     cls = getattr(importlib.import_module(module_path), cls_name)
-    accepted = set(inspect.signature(cls.__init__).parameters)
-    return cls(**{k: v for k, v in kwargs.items() if k in accepted})
+    sig = inspect.signature(cls)
+    args = sig.bind_partial(**{k: v for k, v in kwargs.items()
+                               if k in sig.parameters})
+    model = cls(**args.arguments)
+    # the constructor record the JAX package's flax modules carry as
+    # fields (a wrapper that rebuilds the model, kg_link_prediction, reads
+    # it): the registry name and every argument, defaults included
+    args.apply_defaults()
+    model.registry_name = name
+    model.build_kwargs = dict(args.arguments)
+    return model
 
 
 def load_jax_params(model: Module, params: Mapping,
@@ -117,11 +138,13 @@ def load_jax_params(model: Module, params: Mapping,
     ``layer0/W_self`` ↔ ``layer0.W_self``). A flax ``kernel`` is
     [in, out] and becomes the transposed torch ``weight`` [out, in]; a
     flax ``Conv`` kernel [k, in, out] becomes a ``Conv1d`` ``weight`` [out,
-    in, k] by an explicit permutation (PATCHY-SAN's ``conv1``, ``conv2``); a
-    LayerNorm ``scale`` and an ``nn.Embed`` ``embedding`` (CompGCN's
-    ``ent``) become the torch module's ``weight``; every other leaf keeps its
-    name and shape (GAT's ``a_src``/``a_dst`` [1, H, D], flax ``PReLU``'s
-    scalar ``negative_slope``, GraphMAE's ``mask_token`` [1, F]). flax's
+    in, k] by an explicit permutation (PATCHY-SAN's ``conv1``, ``conv2``)
+    and a 2-D one [kh, kw, in, out] a ``Conv2d`` ``weight`` [out, in, kh,
+    kw] (ConvE's ``conv``); a LayerNorm ``scale`` and an ``nn.Embed``
+    ``embedding`` (CompGCN's ``ent``, ``KGLinkPredictor``'s) become the
+    torch module's ``weight``; every other leaf keeps its name and shape
+    (GAT's ``a_src``/``a_dst`` [1, H, D], flax ``PReLU``'s scalar
+    ``negative_slope``, GraphMAE's ``mask_token`` [1, F]). flax's
     automatic names (``Dense_0``, ``PReLU_0``, ``layers_1`` inside an
     ``nn.Sequential``) are the port's module names.
 
@@ -154,6 +177,11 @@ def load_jax_params(model: Module, params: Mapping,
             if is_params and leaf == "kernel" and t.ndim == 3:
                 # a flax Conv kernel [k, in, out] is torch's [out, in, k]
                 state[f"{mod_path}.weight"] = t.permute(2, 1, 0).contiguous()
+            elif is_params and leaf == "kernel" and t.ndim == 4:
+                # a 2-D flax Conv kernel [kh, kw, in, out] is torch's
+                # [out, in, kh, kw]
+                state[f"{mod_path}.weight"] = t.permute(
+                    3, 2, 0, 1).contiguous()
             elif is_params and leaf == "kernel":
                 state[f"{mod_path}.weight"] = t.T.contiguous()
             elif is_params and isinstance(_submodule(mod_path), {

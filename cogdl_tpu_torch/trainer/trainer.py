@@ -112,13 +112,18 @@ def _schedule_factor(cfg: TrainerConfig):
     return None
 
 
-def build_optimizer(cfg: TrainerConfig, params) -> Tuple[torch.optim.Optimizer, Any]:
+def build_optimizer(cfg: TrainerConfig, params
+                    ) -> Tuple[Optional[torch.optim.Optimizer], Any]:
     """Optimizer and schedule. ``adam`` adds ``weight_decay · p`` to the
     gradient before Adam (optax ``add_decayed_weights`` then ``adam``, which
     is ``torch.optim.Adam(weight_decay=…)``); ``adamw`` decouples the decay;
     ``sgd`` is momentum 0.9 without decay. Returns ``(optimizer,
-    scheduler-or-None)``; step the scheduler once per optimizer step."""
+    scheduler-or-None)``; step the scheduler once per optimizer step. A
+    model without parameters (AGC) gets ``(None, None)``: optax steps an
+    empty tree as a no-op, and the trainer then only computes the loss."""
     params = list(params)
+    if not params:
+        return None, None
     if cfg.optimizer == "adamw":
         opt = torch.optim.AdamW(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
     elif cfg.optimizer == "sgd":
@@ -149,7 +154,7 @@ def clip_by_global_norm(params, max_norm: float) -> None:
 
 def _snapshot(model, opt, sched):
     return ({k: v.detach().clone() for k, v in model.state_dict().items()},
-            copy.deepcopy(opt.state_dict()),
+            None if opt is None else copy.deepcopy(opt.state_dict()),
             None if sched is None else sched.state_dict())
 
 
@@ -179,7 +184,8 @@ def _opt_state_fits(opt, state) -> bool:
 def _restore(model, opt, sched, snap):
     state, opt_state, sched_state = snap
     model.load_state_dict(state)
-    opt.load_state_dict(opt_state)
+    if opt is not None:
+        opt.load_state_dict(opt_state)
     if sched is not None:
         sched.load_state_dict(sched_state)
 
@@ -205,11 +211,20 @@ class Trainer:
     def train_step(self, wrapper, optimizer, scheduler, graph,
                    generator: torch.Generator) -> torch.Tensor:
         """One optimizer step on one batch; returns the (detached) loss
-        without waiting for the device."""
+        without waiting for the device. A parameter the loss does not reach
+        steps with a zero gradient, as every leaf of the JAX trainer's tree
+        does (weight decay then moves it). Without an optimizer (a model
+        without parameters) the step only computes the loss."""
+        if optimizer is None:
+            with torch.no_grad():
+                return wrapper.loss(graph, generator, training=True).detach()
         params = [p for g in optimizer.param_groups for p in g["params"]]
         optimizer.zero_grad(set_to_none=True)
         loss = wrapper.loss(graph, generator, training=True)
         loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.cfg.grad_clip:
             clip_by_global_norm(params, self.cfg.grad_clip)
         optimizer.step()
@@ -254,7 +269,8 @@ class Trainer:
                 # as the reference (cogdl_tpu/trainer/trainer.py:220-225): a
                 # saved state that does not fit this optimizer is dropped and
                 # the run starts from fresh moments and a fresh schedule
-                if opt_state is not None and _opt_state_fits(opt, opt_state):
+                if (opt is not None and opt_state is not None
+                        and _opt_state_fits(opt, opt_state)):
                     opt.load_state_dict(opt_state)
                     sched_state = ckpt.get("extra", {}).get("sched_state")
                     if sched is not None and sched_state is not None:

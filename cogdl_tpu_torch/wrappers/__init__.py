@@ -9,8 +9,10 @@ classification over metapath graphs (``heterogeneous_gnn``), manifold
 mixup (``gcnmix``), the multi-stage wrappers (``sagn_staged``,
 ``m3s_staged``, ``correct_smooth``), and the self-supervised ones
 (``dgi``, ``grace``, ``graphmae``, ``graphmae2``, ``bgrl``,
-``unsup_graphsage``, ``self_auxiliary``, ``infograph``); the rest wait in
-ROADMAP.md §1."""
+``unsup_graphsage``, ``self_auxiliary``, ``infograph``), link
+prediction (``link_prediction``, ``kg_link_prediction``,
+``triple_link_prediction``) and clustering (``clustering``); the rest wait
+in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -53,6 +55,15 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
         "cogdl_tpu_torch.wrappers.self_supervised.SelfAuxiliaryWrapper",
     "infograph":
         "cogdl_tpu_torch.wrappers.graph_classification.InfoGraphWrapper",
+    "link_prediction":
+        "cogdl_tpu_torch.wrappers.link_prediction.LinkPredictionWrapper",
+    "clustering": "cogdl_tpu_torch.wrappers.clustering.ClusteringWrapper",
+    "kg_link_prediction":
+        "cogdl_tpu_torch.wrappers.kg_link_prediction."
+        "KGLinkPredictionWrapper",
+    "triple_link_prediction":
+        "cogdl_tpu_torch.wrappers.triple_link_prediction."
+        "TripleLinkPredictionWrapper",
 }
 
 # model name → default wrapper
@@ -83,6 +94,10 @@ DEFAULT_WRAPPER = {
     "dgi": "dgi", "grace": "grace", "mvgrl": "dgi", "graphmae": "graphmae",
     "bgrl": "bgrl", "graphmae2": "graphmae2",
     "unsup_graphsage": "unsup_graphsage", "infograph": "infograph",
+    "gae": "clustering", "vgae": "clustering", "agc": "clustering",
+    "daegc": "clustering",
+    "transe": "triple_link_prediction", "distmult": "triple_link_prediction",
+    "rotate": "triple_link_prediction", "complex": "triple_link_prediction",
 }
 
 
