@@ -6,6 +6,10 @@ The layout is the JAX package's, array for array: node indices offset per
 graph, ``extras["graph_id"]`` mapping each node to its graph (pad nodes to
 the dummy slot ``G_pad - 1``), ``extras["graph_mask"]`` true on the real
 graphs and ``extras["graph_y"]`` their labels. Built on the host.
+
+``block_union`` is the port's own: the union of many copies of one graph,
+built on its device, which runs the traffic models' spatial step over every
+(batch, time) slice of a window at once.
 """
 
 from __future__ import annotations
@@ -91,3 +95,33 @@ def make_batches(
                         None if labels is None else labels[c],
                         n_pad=n_pad, e_pad=e_pad, num_graphs_pad=g_pad)
             for c in chunks]
+
+
+def block_union(graph: Graph, copies: int) -> Graph:
+    """The disconnected union of ``copies`` copies of ``graph``'s real
+    edges (a block-diagonal adjacency), built on ``graph``'s device. Copy
+    ``c`` holds rows ``[c·n_pad, (c+1)·n_pad)`` of ``graph``'s padded row
+    space, so that a ``[copies, n_pad, F]`` tensor, viewed as
+    ``[copies·n_pad, F]``, lines up with the union's rows; the pad rows
+    have no edge. The edges keep their CSR order, weights and ``meta``
+    (the normalisation tag with them); there is no pad edge and no sink
+    row: ``n_pad = num_nodes = copies·graph.n_pad``, ``e_pad = num_edges =
+    copies·graph.num_edges``. ``meta["copies"]`` records the count. No
+    kernel structure is copied."""
+    n, E = graph.n_pad, graph.num_edges
+    if copies < 1 or E == 0:
+        raise ValueError(f"block_union needs at least one copy of a graph "
+                         f"with edges, got {copies} of {E} edges")
+    off = torch.arange(copies, dtype=torch.int32,
+                       device=graph.device)[:, None] * n
+    row = (graph.row[:E][None] + off).reshape(-1)
+    counts = torch.bincount(graph.row[:E].long(), minlength=n).repeat(copies)
+    ptr = torch.zeros(copies * n + 1, dtype=torch.int32, device=graph.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    meta = {k: v for k, v in graph.meta if k != "spmm_panel_rows"}
+    meta["copies"] = copies
+    return Graph(row_ptr=ptr, row=row,
+                 col=(graph.col[:E][None] + off).reshape(-1),
+                 edge_weight=graph.edge_weight[:E].repeat(copies),
+                 num_nodes=copies * n, num_edges=copies * E,
+                 meta=tuple(sorted(meta.items())))

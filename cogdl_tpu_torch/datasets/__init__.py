@@ -1,6 +1,7 @@
 """Dataset registry — the port of ``cogdl_tpu/datasets/__init__.py`` for the
-offline synthetic names and the heterogeneous loaders. ``build_dataset(name)``
-returns a :class:`Dataset` holding one CPU graph, for ``random-graphs`` a
+offline synthetic names and the heterogeneous, recommendation and PeMS
+loaders. ``build_dataset(name)`` returns a :class:`Dataset` holding one CPU
+graph, for ``random-graphs`` a
 list of small CPU graphs with their labels, or for ``random-kg`` a dict of
 KG triples; the trainer (or, for a list, the graph classification wrapper)
 moves them to the device.
@@ -31,16 +32,25 @@ SUPPORTED_DATASETS: Dict[str, str] = {
     "han-acm": "cogdl_tpu_torch.datasets.hetero.build_han",
     "han-dblp": "cogdl_tpu_torch.datasets.hetero.build_han",
     "han-imdb": "cogdl_tpu_torch.datasets.hetero.build_han",
+    # recommendation (reference datasets/rec_data.py)
+    "yelp2018": "cogdl_tpu_torch.datasets.rec.build",
+    "ali": "cogdl_tpu_torch.datasets.rec.build",
+    "amazon-rec": "cogdl_tpu_torch.datasets.rec.build",
+    # PeMS traffic (reference datasets/stgcn_data.py, stgat_data.py)
+    "pems-stgcn": "cogdl_tpu_torch.datasets.traffic_pems.build",
+    "pems-stgat": "cogdl_tpu_torch.datasets.traffic_pems.build",
 }
 
 OFFLINE_NAMES = ("sbm | sbm-small | sbm-large | powerlaw-<N>[k|m] | "
-                 "random-graphs | hetero-sbm | random-kg")
+                 "random-graphs | traffic-synthetic | hetero-sbm | "
+                 "rec-synthetic | random-kg")
 
 
 def build_dataset(name: str, **kwargs) -> Dataset:
     """Resolve a dataset by name: the synthetic families (``sbm``,
     ``sbm-large``, ``powerlaw-<N>[k|m]``, ``random-graphs``,
-    ``hetero-sbm``, ``random-kg``: KG triples, no graph) or a loader of
+    ``traffic-synthetic`` (metric ``mae``), ``hetero-sbm``,
+    ``rec-synthetic``, ``random-kg``: KG triples, no graph) or a loader of
     :data:`SUPPORTED_DATASETS`. Other names of the JAX registry are not yet
     ported and raise."""
     from . import synthetic as syn
@@ -59,8 +69,14 @@ def build_dataset(name: str, **kwargs) -> Dataset:
     if name == "random-graphs":
         graphs, labels = syn.random_graphs_dataset(**kwargs)
         return Dataset.from_graphs(graphs, labels=labels, name=name)
+    if name == "traffic-synthetic":
+        return Dataset.from_graph(syn.traffic_graph(**kwargs), name=name,
+                                  metric="mae")
     if name == "hetero-sbm":
         return Dataset.from_graph(syn.hetero_sbm_graph(**kwargs), name=name)
+    if name == "rec-synthetic":
+        return Dataset.from_graph(syn.bipartite_rec_graph(**kwargs),
+                                  name=name)
     if name == "random-kg":
         return Dataset.from_triples(syn.random_triples(**kwargs), name=name)
     if name in SUPPORTED_DATASETS:

@@ -1,8 +1,9 @@
 """Synthetic graph generators — the port of the ``sbm_graph``,
-``powerlaw_graph``, ``powerlaw_graph_device``, ``random_graphs_dataset`` and
-``hetero_sbm_graph`` parts of ``cogdl_tpu/datasets/synthetic.py``.
+``powerlaw_graph``, ``powerlaw_graph_device``, ``random_graphs_dataset``,
+``traffic_graph``, ``hetero_sbm_graph``, ``bipartite_rec_graph`` and
+``random_triples`` parts of ``cogdl_tpu/datasets/synthetic.py``.
 
-The four host generators draw from ``np.random.default_rng(seed)`` with the
+The host generators draw from ``np.random.default_rng(seed)`` with the
 same calls in the same order as the JAX package, so the same arguments give
 the same graph in both packages. ``powerlaw_graph_device`` and the features
 of ``powerlaw_graph(device_features=True)`` are drawn on the device from a
@@ -253,6 +254,41 @@ def random_graphs_dataset(
     return graphs, np.asarray(labels, np.int32)
 
 
+def traffic_graph(
+    num_nodes: int = 50,
+    num_steps: int = 400,
+    feat_dim: int = 1,
+    seed: int = 0,
+) -> Graph:
+    """Traffic time-series stand-in (PeMS-style): a ring road graph (each
+    station linked both ways to the next two along the ring), and a
+    smooth periodic series a station with noise in ``extras["series"]``
+    ``[num_steps, n_pad, feat_dim]``, zero on the pad rows, so that a
+    window of it lines up with the graph's rows; ``x`` is ``[n_pad, 1]``
+    zeros. The JAX package's graph and series for the same arguments."""
+    rng = np.random.default_rng(seed)
+    v = np.arange(num_nodes)
+    near, far = (v + 1) % num_nodes, (v + 2) % num_nodes
+    # a station's four entries in the JAX generator's order
+    rows = np.stack([v, near, v, far], 1).reshape(-1)
+    cols = np.stack([near, v, far, v], 1).reshape(-1)
+    g = from_coo(np.stack([rows, cols]), num_nodes=num_nodes,
+                 meta={"name": f"traffic{num_nodes}", "num_classes": 1})
+    t = np.arange(num_steps)[:, None]
+    phase = rng.uniform(0, 2 * np.pi, num_nodes)[None, :]
+    base = (np.sin(2 * np.pi * t / 48 + phase)
+            + 0.5 * np.sin(2 * np.pi * t / 12 + 2 * phase))
+    noise = 0.1 * rng.normal(size=(num_steps, num_nodes))
+    series = (base + noise).astype(np.float32)[..., None]
+    if feat_dim > 1:
+        series = np.repeat(series, feat_dim, axis=-1)
+    series = np.concatenate(
+        [series, np.zeros((num_steps, g.n_pad - num_nodes, series.shape[-1]),
+                          np.float32)], axis=1)
+    return g.replace(x=torch.zeros((g.n_pad, 1)),
+                     extras={"series": torch.from_numpy(series)})
+
+
 def hetero_sbm_graph(
     num_nodes: int = 300,
     num_types: int = 3,
@@ -302,6 +338,50 @@ def hetero_sbm_graph(
     return g.replace(extras={"node_type": torch.from_numpy(nt),
                              "metapath_graphs": metas,
                              "relation_graphs": metas})
+
+
+def bipartite_rec_graph(
+    num_users: int = 200,
+    num_items: int = 100,
+    avg_interactions: int = 12,
+    num_tastes: int = 5,
+    seed: int = 0,
+) -> Graph:
+    """User-item bipartite graph with latent taste clusters (a yelp2018
+    stand-in for LightGCN): each user takes ``max(2, Poisson(avg))`` items,
+    85% of them of its own taste, so collaborative filtering is learnable.
+    Users are nodes ``[0, num_users)``, items follow; both directions of
+    every interaction; ``meta`` carries ``num_users`` and ``num_items``. The
+    JAX package's graph for the same arguments: the same draws in the same
+    order, with the pools of each taste found once instead of once a
+    user."""
+    rng = np.random.default_rng(seed)
+    user_taste = rng.integers(0, num_tastes, num_users)
+    item_taste = rng.integers(0, num_tastes, num_items)
+    pools = {t: (np.where(item_taste == t)[0], np.where(item_taste != t)[0])
+             for t in np.unique(user_taste)}
+    picked = []
+    for u in range(num_users):
+        k = max(2, rng.poisson(avg_interactions))
+        same, other = pools[user_taste[u]]
+        n_same = int(0.85 * k)
+        pick = []
+        if same.size:
+            pick.append(rng.choice(same, size=min(n_same, same.size),
+                                   replace=False))
+        if other.size:
+            pick.append(rng.choice(other, size=min(k - n_same, other.size),
+                                   replace=False))
+        picked.append(np.unique(np.concatenate(pick)) + num_users)
+    counts = np.fromiter((p.size for p in picked), np.int64, num_users)
+    users = np.repeat(np.arange(num_users), counts)
+    items = np.concatenate(picked) if picked else np.zeros(0, np.int64)
+    return from_coo(np.stack([np.concatenate([users, items]),
+                              np.concatenate([items, users])]),
+                    num_nodes=num_users + num_items,
+                    meta={"num_users": num_users, "num_items": num_items,
+                          "num_classes": num_tastes,
+                          "name": f"rec{num_users}x{num_items}"})
 
 
 def random_triples(

@@ -71,9 +71,20 @@ def _setup_variant(ds, model, seed, wrapper, kwargs):
     out_features = ds.num_classes
     if out_features is None:
         out_features = model_kwargs.get("hidden_size", 64)
-    mdl = build_model(model, in_features=ds.num_features,
+    mdl = build_model(model, in_features=_in_features(ds),
                       out_features=out_features, **model_kwargs)
     return wrapper_cls(mdl, dataset=ds, **wrapper_kwargs), mdl, trainer_kwargs
+
+
+def _in_features(ds) -> int:
+    """A model's input width: a traffic series' channels (flax infers
+    them from the window; the port's convolutions are built for them),
+    else the node features' (0 for a graph without any, the
+    recommendation graph)."""
+    g = ds.graph
+    if g is not None and g.extras and "series" in g.extras:
+        return int(g.extras["series"].shape[-1])
+    return ds.num_features
 
 
 def _check_unported(kwargs):

@@ -16,8 +16,10 @@ and ``patchy_san``, and the self-supervised ``dgi``, ``mvgrl``, ``grace``,
 ``infograph``, the link-prediction and clustering encoders ``gae``,
 ``vgae``, ``agc`` and ``daegc``, and the KG triple embeddings ``transe``,
 ``distmult``, ``rotate`` and ``complex`` (plain objects that train
-themselves, not modules), are ported so far; every other name of the JAX
-registry waits in ROADMAP.md §1 ("Modules to port").
+themselves, not modules), LightGCN (``lightgcn``) for recommendation and
+the traffic forecasters ``stgcn`` and ``stgat`` are ported so far; every
+other name of the JAX registry waits in ROADMAP.md §1 ("Modules to
+port").
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch.nn import Embedding, LayerNorm, Module
+from torch.nn import Embedding, LayerNorm, Module, Parameter
 
 SUPPORTED_MODELS: Dict[str, str] = {
     "gcn": "cogdl_tpu_torch.models.nn.gcn.GCN",
@@ -93,6 +95,9 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "distmult": "cogdl_tpu_torch.models.emb.knowledge_base.DistMult",
     "rotate": "cogdl_tpu_torch.models.emb.knowledge_base.RotatE",
     "complex": "cogdl_tpu_torch.models.emb.knowledge_base.ComplEx",
+    "lightgcn": "cogdl_tpu_torch.models.nn.lightgcn.LightGCN",
+    "stgcn": "cogdl_tpu_torch.models.nn.stgcn.STGCN",
+    "stgat": "cogdl_tpu_torch.models.nn.stgat.STGAT",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -140,12 +145,15 @@ def load_jax_params(model: Module, params: Mapping,
     flax ``Conv`` kernel [k, in, out] becomes a ``Conv1d`` ``weight`` [out,
     in, k] by an explicit permutation (PATCHY-SAN's ``conv1``, ``conv2``)
     and a 2-D one [kh, kw, in, out] a ``Conv2d`` ``weight`` [out, in, kh,
-    kw] (ConvE's ``conv``); a LayerNorm ``scale`` and an ``nn.Embed``
-    ``embedding`` (CompGCN's ``ent``, ``KGLinkPredictor``'s) become the
-    torch module's ``weight``; every other leaf keeps its name and shape
-    (GAT's ``a_src``/``a_dst`` [1, H, D], flax ``PReLU``'s scalar
-    ``negative_slope``, GraphMAE's ``mask_token`` [1, F]). flax's
-    automatic names (``Dense_0``, ``PReLU_0``, ``layers_1`` inside an
+    kw] (ConvE's ``conv``, STGCN's and STGAT's temporal convolutions); a
+    LayerNorm ``scale`` and an ``nn.Embed`` ``embedding`` (CompGCN's
+    ``ent``, ``KGLinkPredictor``'s) become the torch module's ``weight``;
+    every other leaf keeps its name and shape (GAT's ``a_src``/``a_dst``
+    [1, H, D], flax ``PReLU``'s scalar ``negative_slope``, GraphMAE's
+    ``mask_token`` [1, F], LightGCN's ``emb``, whose shape a table
+    without rows yet takes). An ``nn.vmap``-ed layer's shared parameters
+    (STGAT's ``gat0``) sit where the layer's own would. flax's automatic
+    names (``Dense_0``, ``PReLU_0``, ``layers_1`` inside an
     ``nn.Sequential``) are the port's module names.
 
     The self-supervised state: ``teacher``, the JAX wrapper's
@@ -207,6 +215,13 @@ def load_jax_params(model: Module, params: Mapping,
             walk(teacher, "teacher.", True)
     if ema is not None:
         state["ema_step"] = torch.tensor(float(np.asarray(ema["step"])))
+    # a parameter the model sizes from its first graph (LightGCN's ``emb``
+    # table, still without rows) takes the leaf's shape
+    for name, p in list(model.named_parameters()):
+        if name in state and p.numel() == 0 and state[name].numel():
+            mod_path, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(mod_path), leaf,
+                    Parameter(torch.empty_like(state[name])))
     result = model.load_state_dict(state, strict=False)
     param_names = {n for n, _ in model.named_parameters()}
     missing = [k for k in result.missing_keys if k in param_names

@@ -1,8 +1,10 @@
-"""Losses and metrics — the port of the loss half of
-``cogdl_tpu/utils/evaluator.py``. All are mask-aware: masks handle both the
-splits and node padding. Beside them, the two scores the link-prediction
-and clustering wrappers take from scikit-learn in the JAX package,
-``roc_auc_score`` and ``normalized_mutual_info``, in float64 numpy."""
+"""Losses and metrics — the port of ``cogdl_tpu/utils/evaluator.py``: the
+losses, ``masked_accuracy`` and the accumulating evaluators (``Accuracy``,
+``MultiLabelMicroF1``, ``MAE``, ``build_evaluator``). All are mask-aware:
+masks handle both the splits and node padding. Beside them, the two scores
+the link-prediction and clustering wrappers take from scikit-learn in the
+JAX package, ``roc_auc_score`` and ``normalized_mutual_info``, in float64
+numpy."""
 
 from __future__ import annotations
 
@@ -130,3 +132,97 @@ def normalized_mutual_info(labels_true, labels_pred) -> float:
     if mi == 0:
         return 0.0
     return float(mi / np.mean([_entropy(a), _entropy(b)]))
+
+
+# ---------------------------------------------------------------------------
+# Accumulating evaluators
+# ---------------------------------------------------------------------------
+
+def _mask_like(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    m = mask.float()
+    return m.reshape(tuple(m.shape) + (1,) * (ndim - m.ndim))
+
+
+class Accuracy:
+    """Accuracy summed over calls: the argmax against the labels, over the
+    masked rows when a mask is given."""
+
+    def __init__(self):
+        self.correct = 0.0
+        self.total = 0.0
+
+    def __call__(self, logits, labels, mask=None) -> float:
+        ok = (logits.argmax(-1) == labels).float()
+        if mask is not None:
+            m = mask.float()
+            self.correct += float((ok * m).sum())
+            self.total += float(m.sum())
+        else:
+            self.correct += float(ok.sum())
+            self.total += float(ok.numel())
+        return self.evaluate()
+
+    def evaluate(self) -> float:
+        return self.correct / max(self.total, 1.0)
+
+    def clear(self):
+        self.correct = self.total = 0.0
+
+
+class MultiLabelMicroF1:
+    """Micro-F1 of multilabel targets summed over calls, a label predicted
+    where its logit is above 0 (its sigmoid above 0.5)."""
+
+    def __init__(self):
+        self.tp = self.fp = self.fn = 0.0
+
+    def __call__(self, logits, labels, mask=None) -> float:
+        pred = (logits > 0).float()
+        tgt = labels.float()
+        if mask is not None:
+            m = _mask_like(mask, pred.ndim)
+            pred, tgt = pred * m, tgt * m
+        self.tp += float((pred * tgt).sum())
+        self.fp += float((pred * (1 - tgt)).sum())
+        self.fn += float(((1 - pred) * tgt).sum())
+        return self.evaluate()
+
+    def evaluate(self) -> float:
+        denom = 2 * self.tp + self.fp + self.fn
+        return 2 * self.tp / denom if denom > 0 else 0.0
+
+    def clear(self):
+        self.tp = self.fp = self.fn = 0.0
+
+
+class MAE:
+    """Mean absolute error summed over calls (traffic forecasting), over the
+    masked rows when a mask is given."""
+
+    def __init__(self):
+        self.err = 0.0
+        self.total = 0.0
+
+    def __call__(self, pred, target, mask=None) -> float:
+        e = (pred - target).abs()
+        if mask is not None:
+            m = _mask_like(mask, e.ndim)
+            self.err += float((e * m).sum())
+            self.total += float(m.expand(e.shape).sum())
+        else:
+            self.err += float(e.sum())
+            self.total += float(e.numel())
+        return self.evaluate()
+
+    def evaluate(self) -> float:
+        return self.err / max(self.total, 1.0)
+
+    def clear(self):
+        self.err = self.total = 0.0
+
+
+def build_evaluator(metric: str):
+    """A fresh evaluator by name: ``accuracy`` (or ``acc``), ``microf1`` or
+    ``mae``; another name raises ``KeyError``."""
+    return {"accuracy": Accuracy, "acc": Accuracy,
+            "microf1": MultiLabelMicroF1, "mae": MAE}[metric]()

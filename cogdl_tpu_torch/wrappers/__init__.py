@@ -11,8 +11,9 @@ mixup (``gcnmix``), the multi-stage wrappers (``sagn_staged``,
 (``dgi``, ``grace``, ``graphmae``, ``graphmae2``, ``bgrl``,
 ``unsup_graphsage``, ``self_auxiliary``, ``infograph``), link
 prediction (``link_prediction``, ``kg_link_prediction``,
-``triple_link_prediction``) and clustering (``clustering``); the rest wait
-in ROADMAP.md §1."""
+``triple_link_prediction``), clustering (``clustering``), recommendation
+(``recommendation``) and traffic forecasting (``traffic_prediction``); the
+rest wait in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -64,6 +65,11 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "triple_link_prediction":
         "cogdl_tpu_torch.wrappers.triple_link_prediction."
         "TripleLinkPredictionWrapper",
+    "recommendation":
+        "cogdl_tpu_torch.wrappers.recommendation.RecommendationWrapper",
+    "traffic_prediction":
+        "cogdl_tpu_torch.wrappers.traffic_prediction."
+        "TrafficPredictionWrapper",
 }
 
 # model name → default wrapper
@@ -98,6 +104,8 @@ DEFAULT_WRAPPER = {
     "daegc": "clustering",
     "transe": "triple_link_prediction", "distmult": "triple_link_prediction",
     "rotate": "triple_link_prediction", "complex": "triple_link_prediction",
+    "lightgcn": "recommendation", "stgcn": "traffic_prediction",
+    "stgat": "traffic_prediction",
 }
 
 

@@ -121,7 +121,8 @@ def test_missing_files_raise_with_where_to_put_them(tmp_path, monkeypatch):
                            match=str(tmp_path / name / "raw")):
             build_dataset(name)
     assert set(tds.SUPPORTED_DATASETS) == {
-        f"{k}-{d}" for k in ("gtn", "han") for d in ("acm", "dblp", "imdb")}
+        f"{k}-{d}" for k in ("gtn", "han") for d in ("acm", "dblp", "imdb")
+    } | {"yelp2018", "ali", "amazon-rec", "pems-stgcn", "pems-stgat"}
 
 
 def test_build_dataset_reads_the_data_root(tmp_path, monkeypatch):
