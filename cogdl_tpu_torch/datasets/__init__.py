@@ -1,6 +1,6 @@
 """Dataset registry — the port of ``cogdl_tpu/datasets/__init__.py`` for the
-offline synthetic names and the heterogeneous, recommendation and PeMS
-loaders. ``build_dataset(name)`` returns a :class:`Dataset` holding one CPU
+offline synthetic names and the heterogeneous, recommendation, PeMS and
+MATLAB ``.mat`` loaders. ``build_dataset(name)`` returns a :class:`Dataset` holding one CPU
 graph, for ``random-graphs`` a
 list of small CPU graphs with their labels, or for ``random-kg`` a dict of
 KG triples; the trainer (or, for a list, the graph classification wrapper)
@@ -39,6 +39,14 @@ SUPPORTED_DATASETS: Dict[str, str] = {
     # PeMS traffic (reference datasets/stgcn_data.py, stgat_data.py)
     "pems-stgcn": "cogdl_tpu_torch.datasets.traffic_pems.build",
     "pems-stgat": "cogdl_tpu_torch.datasets.traffic_pems.build",
+    # MATLAB .mat networks of the embedding benchmarks (reference
+    # datasets/matlab_matrix.py)
+    "blogcatalog": "cogdl_tpu_torch.datasets.matlab.build",
+    "wikipedia": "cogdl_tpu_torch.datasets.matlab.build",
+    "ppi-ne": "cogdl_tpu_torch.datasets.matlab.build",
+    "dblp-ne": "cogdl_tpu_torch.datasets.matlab.build",
+    "flickr-ne": "cogdl_tpu_torch.datasets.matlab.build",
+    "youtube-ne": "cogdl_tpu_torch.datasets.matlab.build",
 }
 
 OFFLINE_NAMES = ("sbm | sbm-small | sbm-large | powerlaw-<N>[k|m] | "

@@ -16,8 +16,11 @@ and ``patchy_san``, and the self-supervised ``dgi``, ``mvgrl``, ``grace``,
 ``infograph``, the link-prediction and clustering encoders ``gae``,
 ``vgae``, ``agc`` and ``daegc``, and the KG triple embeddings ``transe``,
 ``distmult``, ``rotate`` and ``complex`` (plain objects that train
-themselves, not modules), LightGCN (``lightgcn``) for recommendation and
-the traffic forecasters ``stgcn`` and ``stgat`` are ported so far; every
+themselves, not modules), LightGCN (``lightgcn``) for recommendation,
+the traffic forecasters ``stgcn`` and ``stgat``, and the homogeneous
+network embeddings ``deepwalk``, ``node2vec``, ``line``, ``netmf``,
+``netsmf``, ``prone``, ``prone++``, ``hope``, ``grarep``, ``spectral``,
+``sdne`` and ``dngr`` (plain objects too) are ported so far; every
 other name of the JAX registry waits in ROADMAP.md §1 ("Modules to
 port").
 """
@@ -98,6 +101,18 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "lightgcn": "cogdl_tpu_torch.models.nn.lightgcn.LightGCN",
     "stgcn": "cogdl_tpu_torch.models.nn.stgcn.STGCN",
     "stgat": "cogdl_tpu_torch.models.nn.stgat.STGAT",
+    "deepwalk": "cogdl_tpu_torch.models.emb.deepwalk.DeepWalk",
+    "node2vec": "cogdl_tpu_torch.models.emb.node2vec.Node2Vec",
+    "line": "cogdl_tpu_torch.models.emb.line.LINE",
+    "netmf": "cogdl_tpu_torch.models.emb.netmf.NetMF",
+    "netsmf": "cogdl_tpu_torch.models.emb.netsmf.NetSMF",
+    "prone": "cogdl_tpu_torch.models.emb.prone.ProNE",
+    "prone++": "cogdl_tpu_torch.models.emb.prone_pp.ProNEpp",
+    "hope": "cogdl_tpu_torch.models.emb.hope.HOPE",
+    "grarep": "cogdl_tpu_torch.models.emb.grarep.GraRep",
+    "spectral": "cogdl_tpu_torch.models.emb.spectral.Spectral",
+    "sdne": "cogdl_tpu_torch.models.emb.sdne.SDNE",
+    "dngr": "cogdl_tpu_torch.models.emb.dngr.DNGR",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 

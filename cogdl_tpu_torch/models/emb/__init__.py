@@ -1,4 +1,6 @@
 """Shallow-embedding models — the port of ``cogdl_tpu/models/emb``: the base
-module (``graph_to_scipy``, ``EmbeddingModel``) and the KG triple
-embeddings (``knowledge_base``: TransE, DistMult, RotatE, ComplEx); the
-node-embedding models wait in ROADMAP.md §1."""
+module (``graph_to_scipy``, ``EmbeddingModel``, ``top_svd``), the KG triple
+embeddings (``knowledge_base``: TransE, DistMult, RotatE, ComplEx) and the
+homogeneous network embeddings (DeepWalk, node2vec, LINE, NetMF, NetSMF,
+ProNE, ProNE++, HOPE, GraRep, Spectral, SDNE, DNGR, with ``walks``); the
+heterogeneous and graph-level ones wait in ROADMAP.md §1."""

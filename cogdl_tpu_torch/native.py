@@ -10,9 +10,12 @@ renames it into place, so processes that build at once never load a
 half-written library. A failed build raises with g++'s output; nothing gives
 way to numpy.
 
-``sample_neighbors`` and ``random_walk`` are bound now; the file's
-``node2vec_walk``, ``induced_subgraph`` and ``coo2csr`` wait for the modules
-that call them (ROADMAP.md §1, item 13h). The draws of each are fixed by
+``sample_neighbors`` and ``random_walk`` are bound now (the network
+embeddings' uniform walks run on ``random_walk``); the file's
+``node2vec_walk``, ``induced_subgraph`` and ``coo2csr`` are not: no module
+of the JAX package calls its own ``native.node2vec_walk`` (its
+``node2vec_walks`` is numpy only, and so is the port's), so each waits for
+the first module that needs it. The draws of each are fixed by
 ``(seed, num_threads)``: thread ``t`` of ``T`` takes the seeds (or walk
 starts) ``[n·t/T, n·(t+1)/T)`` with its own xorshift128+ stream seeded
 ``(seed, t + 1)``. :func:`sample_neighbors_reference` and

@@ -19,15 +19,26 @@ each block of ``CHECK_EVERY`` iterations after the first. After each
 block the host reads the gradient's largest entry and stops at ``tol``, or
 where the objective no longer falls; it returns the iterations it took
 and warns when it stops above ``CONVERGED``. (``torch.optim.LBFGS``
-synchronises the card dozens of times an iteration.) ``f1_label_probe``
-waits for its callers (ROADMAP.md §1, item 13h).
+synchronises the card dozens of times an iteration.)
+
+:func:`f1_label_probe` is the network-embedding protocol: five shuffled
+90 / 10 splits from ``np.random.default_rng(seed)`` (the JAX probe's
+draws), micro and macro F1. One label a node: :func:`logreg_fit`. A label
+matrix: one-vs-rest binary logistic regressions, every label of a split
+fitted at once by one L-BFGS over their summed (separable) objective,
+:func:`logreg_fit_multilabel`, which has each binary fit's minimiser; a
+label constant over the training rows predicts that constant, as
+scikit-learn's ``OneVsRestClassifier`` does. Each test row predicts its
+top ``k`` labels, ``k`` its true count.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from typing import Dict
+from typing import Dict, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +100,13 @@ class Objective:
     def __init__(self, X: torch.Tensor, y: torch.Tensor):
         X = X.double()
         n = X.shape[0]
+        self.Xa = torch.cat([X, X.new_ones(n, 1)], 1)
+        self.scale = 1.0 / (C * n)
+        if y.ndim == 2:
+            # a 0/1 label matrix: one binary problem a column, summed
+            self.classes, self.binary, self.cols = None, True, y.shape[1]
+            self.t = y.double() * 2.0 - 1.0
+            return
         self.classes, t = torch.unique(y, return_inverse=True)
         K = self.classes.numel()
         if K < 2:
@@ -96,8 +114,6 @@ class Objective:
                              f"training rows; got {K}")
         self.binary = K == 2
         self.cols = 1 if self.binary else K
-        self.Xa = torch.cat([X, X.new_ones(n, 1)], 1)
-        self.scale = 1.0 / (C * n)
         if self.binary:
             self.t = (t.double() * 2.0 - 1.0)[:, None]     # ±1
         else:
@@ -107,7 +123,7 @@ class Objective:
     def data(self, Z: torch.Tensor) -> torch.Tensor:
         """The mean loss of each ``[..., n, cols]`` score matrix."""
         if self.binary:
-            return F.softplus(-self.t * Z).mean((-2, -1))
+            return F.softplus(-self.t * Z).mean(-2).sum(-1)
         picked = Z.gather(-1, self.idx.expand(Z.shape[:-1])[..., None])
         return (torch.logsumexp(Z, -1) - picked[..., 0]).mean(-1)
 
@@ -194,7 +210,9 @@ def _recorded(block, dev: torch.device) -> "torch.cuda.CUDAGraph":
 def logreg_fit(X: torch.Tensor, y: torch.Tensor, max_iter: int = MAX_ITER,
                tol: float = TOL) -> LogReg:
     """Fit scikit-learn's ``LogisticRegression()`` objective on ``X``
-    ``[n, F]`` and labels ``y`` ``[n]`` in float64 on their device. On
+    ``[n, F]`` and labels ``y`` ``[n]`` in float64 on their device (or,
+    for a 0/1 matrix ``y`` ``[n, L]``, the sum of ``L`` binary objectives,
+    ``coef`` ``[L, F]``, ``classes`` None). On
     the card the first ``CHECK_EVERY`` iterations run as they are and are
     recorded into a CUDA graph, which runs each later block of them: the
     host then enqueues one graph a block, not some 90 operations an
@@ -269,3 +287,83 @@ def logreg_probe(emb: torch.Tensor, graph) -> Dict[str, float]:
     out["probe_iters"] = clf.n_iter
     out["probe_ms"] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+def f1_scores(true: torch.Tensor, pred: torch.Tensor) -> Tuple[float, float]:
+    """scikit-learn's ``f1_score`` micro and macro: over the columns of
+    0/1 matrices, or over the classes in ``true`` or ``pred`` of label
+    vectors; a label without a true or a predicted member scores 0."""
+    if true.ndim == 1:
+        classes = torch.unique(torch.cat([true, pred]))
+        true = (true[:, None] == classes[None, :])
+        pred = (pred[:, None] == classes[None, :])
+    true, pred = true.bool(), pred.bool()
+    tp = (true & pred).sum(0).double()
+    fp = (~true & pred).sum(0).double()
+    fn = (true & ~pred).sum(0).double()
+    denom = 2 * tp + fp + fn
+    per_label = torch.where(denom > 0, 2 * tp / denom.clamp_min(1), 0.0)
+    micro = 2 * tp.sum() / (2 * tp.sum() + fp.sum() + fn.sum()).clamp_min(1)
+    return float(micro), float(per_label.mean())
+
+
+def ovr_proba(X_tr: torch.Tensor, Y_tr: torch.Tensor,
+              X_te: torch.Tensor) -> torch.Tensor:
+    """``OneVsRestClassifier(LogisticRegression()).predict_proba`` over a
+    0/1 label matrix: each label's probability on ``X_te``, the labels
+    with both values in training fitted together
+    (:func:`logreg_fit`), the others their constant."""
+    Y_tr = Y_tr.double()
+    prob = Y_tr[:1].expand(X_te.shape[0], -1).clone()
+    live = (Y_tr.min(0).values != Y_tr.max(0).values).nonzero()[:, 0]
+    if live.numel():
+        clf = logreg_fit(X_tr, Y_tr[:, live])
+        prob[:, live] = torch.sigmoid(X_te.double() @ clf.coef.T
+                                      + clf.intercept)
+    return prob
+
+
+def top_k_labels(prob: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """0/1 rows with each row's ``k`` most probable labels set."""
+    kmax = int(k.max()) if k.numel() else 0
+    pred = torch.zeros_like(prob, dtype=torch.bool)
+    if kmax > 0:
+        top = torch.topk(prob, kmax, dim=1).indices
+        keep = torch.arange(kmax, device=prob.device)[None, :] < k[:, None]
+        pred.scatter_(1, top, keep)
+    return pred
+
+
+def f1_label_probe(emb: torch.Tensor, labels, train_ratio: float = 0.9,
+                   n_shuffles: int = 5, seed: int = 0) -> Dict[str, float]:
+    """Micro / macro F1 over ``n_shuffles`` shuffled splits, the first
+    ``train_ratio`` of each permutation for training: the
+    network-embedding evaluation protocol, on ``emb``'s device. Returns
+    ``test_micro_f1``, ``test_macro_f1``, ``micro_f1_std`` and the
+    probe's own ``probe_ms`` (the card synchronised before and after)."""
+    if emb.device.type == "cuda":
+        torch.cuda.synchronize(emb.device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    X = standardize(emb)
+    labels = torch.as_tensor(labels).to(X.device)
+    n = X.shape[0]
+    micro, macro = [], []
+    for _ in range(n_shuffles):
+        idx = torch.from_numpy(rng.permutation(n)).to(X.device)
+        n_tr = int(train_ratio * n)
+        tr, te = idx[:n_tr], idx[n_tr:]
+        if labels.ndim == 2:
+            prob = ovr_proba(X[tr], labels[tr], X[te])
+            true = labels[te] > 0
+            pred = top_k_labels(prob, true.sum(1))
+        else:
+            true = labels[te]
+            pred = logreg_fit(X[tr], labels[tr]).predict(X[te])
+        mi, ma = f1_scores(true, pred)
+        micro.append(mi)
+        macro.append(ma)
+    return {"test_micro_f1": float(np.mean(micro)),
+            "test_macro_f1": float(np.mean(macro)),
+            "micro_f1_std": float(np.std(micro)),
+            "probe_ms": (time.perf_counter() - t0) * 1e3}

@@ -12,8 +12,9 @@ mixup (``gcnmix``), the multi-stage wrappers (``sagn_staged``,
 ``unsup_graphsage``, ``self_auxiliary``, ``infograph``), link
 prediction (``link_prediction``, ``kg_link_prediction``,
 ``triple_link_prediction``), clustering (``clustering``), recommendation
-(``recommendation``) and traffic forecasting (``traffic_prediction``); the
-rest wait in ROADMAP.md §1."""
+(``recommendation``), traffic forecasting (``traffic_prediction``) and
+network embedding (``network_embedding``); the rest wait in ROADMAP.md
+§1."""
 
 from __future__ import annotations
 
@@ -70,6 +71,9 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "traffic_prediction":
         "cogdl_tpu_torch.wrappers.traffic_prediction."
         "TrafficPredictionWrapper",
+    "network_embedding":
+        "cogdl_tpu_torch.wrappers.network_embedding."
+        "NetworkEmbeddingWrapper",
 }
 
 # model name → default wrapper
@@ -106,6 +110,12 @@ DEFAULT_WRAPPER = {
     "rotate": "triple_link_prediction", "complex": "triple_link_prediction",
     "lightgcn": "recommendation", "stgcn": "traffic_prediction",
     "stgat": "traffic_prediction",
+    "deepwalk": "network_embedding", "node2vec": "network_embedding",
+    "line": "network_embedding", "netmf": "network_embedding",
+    "netsmf": "network_embedding", "prone": "network_embedding",
+    "prone++": "network_embedding", "hope": "network_embedding",
+    "grarep": "network_embedding", "spectral": "network_embedding",
+    "sdne": "network_embedding", "dngr": "network_embedding",
 }
 
 

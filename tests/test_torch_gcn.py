@@ -154,4 +154,4 @@ def test_init_follows_flax_lecun_normal():
 
 def test_build_model_unported_names():
     with pytest.raises(ValueError, match="not yet ported"):
-        build_model("deepwalk", in_features=4, out_features=2)
+        build_model("metapath2vec", in_features=4, out_features=2)

@@ -122,7 +122,9 @@ def test_missing_files_raise_with_where_to_put_them(tmp_path, monkeypatch):
             build_dataset(name)
     assert set(tds.SUPPORTED_DATASETS) == {
         f"{k}-{d}" for k in ("gtn", "han") for d in ("acm", "dblp", "imdb")
-    } | {"yelp2018", "ali", "amazon-rec", "pems-stgcn", "pems-stgat"}
+    } | {"yelp2018", "ali", "amazon-rec", "pems-stgcn", "pems-stgat"} | {
+        "blogcatalog", "wikipedia", "ppi-ne", "dblp-ne", "flickr-ne",
+        "youtube-ne"}
 
 
 def test_build_dataset_reads_the_data_root(tmp_path, monkeypatch):
