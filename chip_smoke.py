@@ -91,8 +91,18 @@ ProNE++, HOPE, GraRep, Spectral, SDNE, DNGR) through ``experiment()`` on a
 BlogCatalog-scale network (10,312 nodes, 333,983 edges, 39 labels) read
 from a .mat file, with K1 at F=128 over ProNE's D⁻¹A and A (exact
 launches: ProNE 11, ProNE++ 66), each run's time by stage and its
-F1 probe, card against CPU embeddings on a PPI-scale network from the
-same draws, and micro-F1 there against the JAX package's. Prints one JSON line
+F1 probe, card against CPU embeddings from the same draws (DeepWalk,
+node2vec and LINE on a PPI-scale network, the others on a 1,500-node one
+at PPI's degree), and micro-F1 on the PPI-scale network against the JAX
+package's; then the heterogeneous and graph-level embeddings and
+GCC: K1 at F=18 and F=64 both ways over one union of GCC's walk-with-restart
+subgraphs of the 100k graph, metapath2vec, hin2vec and PTE on an ACM-scale
+heterogeneous graph, GATNE on a multiplex network at the scale of GATNE's
+Amazon (10,166 nodes, 148,865 edges of two types) read from its files,
+graph2vec and DGK on the NCI1-scale graphs and GCC on the 100k graph
+through ``experiment()`` (GCC with exact K1 launches and a profiled step),
+card against CPU tables, embeddings and GCC's losses and queue, and each
+score against the JAX package's. Prints one JSON line
 of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when torch sees no CUDA device
 or any phase fails. ``--gather-only`` builds the kernels and runs only the
@@ -169,6 +179,11 @@ from cogdl_tpu_torch.ops.cuda import (
 )
 from cogdl_tpu_torch.ops.cuda import segment_kernels as sk
 from cogdl_tpu_torch.scripts import microbench_gather as mg
+from cogdl_tpu_torch.trainer.trainer import (
+    Trainer,
+    TrainerConfig,
+    build_optimizer,
+)
 from cogdl_tpu_torch.utils.probe import f1_label_probe, logreg_probe
 from cogdl_tpu_torch.utils.svm import cross_val_accuracy, stratified_kfold
 from cogdl_tpu_torch.utils.timing import behind_sleep, time_device_ms, time_ms
@@ -3317,7 +3332,9 @@ ZOO_QUALITY_EPOCHS = {"deepergcn": 300}
 #   JAX_PLATFORMS=cpu python -c "from cogdl_tpu import experiment; \
 #       experiment(dataset='sbm', model=MODEL, epochs=EPOCHS, seed=[0, 1])"
 # run from the repo root, EPOCHS from ZOO_QUALITY_EPOCHS; the card's bar is
-# each less ZOO_QUALITY_MARGIN
+# each less ZOO_QUALITY_MARGIN. DeeperGCN keeps both seeds: its seed 0
+# alone gave 0.945 on the card once (its index_add sums vary run to run),
+# against the JAX package's 0.99
 ZOO_JAX_SBM_ACC = {
     "gcnii": 0.9975, "appnp": 0.9950, "mixhop": 0.9975, "sgc": 0.9825,
     "mlp": 1.0000, "deepergcn": 0.9825, "drgcn": 0.9725, "drgat": 0.9825,
@@ -3535,7 +3552,7 @@ def phase_zoo_quality(device: torch.device, models=tuple(ZOO_KW),
     defaults, for its :data:`ZOO_QUALITY_EPOCHS` (or ``epochs``), held to
     the JAX package's own accuracy at the same settings less
     :data:`ZOO_QUALITY_MARGIN` (:data:`ZOO_JAX_SBM_ACC`)."""
-    accs, seconds = {}, {}
+    accs, per_seed, seconds = {}, {}, {}
     for m in models:
         t0 = time.perf_counter()
         results = experiment(
@@ -3544,10 +3561,11 @@ def phase_zoo_quality(device: torch.device, models=tuple(ZOO_KW),
             device=str(device))
         seconds[m] = round(time.perf_counter() - t0, 1)
         (runs,) = results.values()
-        accs[m] = float(np.mean([r["test_acc"] for r in runs]))
+        per_seed[m] = [r["test_acc"] for r in runs]
+        accs[m] = float(np.mean(per_seed[m]))
     print(f"[zoo-quality] sbm test_acc {json.dumps(accs)} (JAX package "
           f"{json.dumps(ZOO_JAX_SBM_ACC)}, margin {ZOO_QUALITY_MARGIN}); "
-          f"seconds {json.dumps(seconds)}")
+          f"by seed {json.dumps(per_seed)}; seconds {json.dumps(seconds)}")
     short = {m: a for m, a in accs.items()
              if a < ZOO_JAX_SBM_ACC[m] - ZOO_QUALITY_MARGIN}
     if short:
@@ -3588,13 +3606,15 @@ REST_LIVE_FEAT = 64
 # Seeds of each model's sbm quality run: 0 and 1, but more for each model
 # whose test accuracy over seeds 0-7 at 100 epochs on the CPU, in the port
 # or the JAX package, reaches below its two-seed bar, so that a two-seed
-# mean is a coin toss against it: 0-7 for SIGN (port 0.955-1.0 against a
-# bar of 0.98), GDC-GCN (0.975-1.0 against 0.9775) and ActGCN (0.97-1.0
-# against 0.975), 0-3 for RevGEN (JAX 0.91-0.985, port 0.955-0.98, against
+# mean is a coin toss against it: 0-3 for SIGN (port 0.955-1.0 over
+# seeds 0-7 against a bar of 0.98), GDC-GCN (0.975-1.0 against 0.9775)
+# and ActGCN (0.97-1.0 against 0.975), which ran seeds 0-7 until ROADMAP
+# T5's cut of the script's run (the card's eight-seed means 0.9969,
+# 0.9831, 0.9900), RevGEN (JAX 0.91-0.985, port 0.955-0.98, against
 # 0.96; 6.5 s a seed on the card) and RevGAT (JAX 0.94-1.0, port
 # 0.965-1.0, at REST_QUALITY_KW). Each is held to the JAX package's mean
 # over the same seeds.
-REST_QUALITY_SEEDS = {"sign": 8, "gdc_gcn": 8, "actgcn": 8, "revgen": 4,
+REST_QUALITY_SEEDS = {"sign": 4, "gdc_gcn": 4, "actgcn": 4, "revgen": 4,
                       "revgat": 4}
 # Epochs of each model's quality run: 100, but 50 for RevGAT (a cut of
 # ROADMAP T5: 35.3 s at 100 on a slow host), where seeds 0-7 give
@@ -3617,11 +3637,14 @@ REST_QUALITY_KW = {"revgat": {"dropout": 0.0}}
 # run from the repo root, EPOCHS from REST_QUALITY_EPOCHS (100 where it
 # names none), KW from REST_QUALITY_KW; the card's bar is each less
 # ZOO_QUALITY_MARGIN
+# (SIGN, GDC-GCN and ActGCN over seeds 0-3: 1.0, 1.0, 1.0, 1.0; 0.995,
+# 1.0, 0.995, 0.985; 0.99, 1.0, 0.995, 0.995; over seeds 0-7 the means
+# were 0.999375, 0.990625, 0.99375)
 REST_JAX_SBM_ACC = {
-    "sign": 0.999375, "dropedge_gcn": 0.9875, "revgcn": 0.9850,
+    "sign": 1.0, "dropedge_gcn": 0.9875, "revgcn": 0.9850,
     "revgat": 0.98875, "revgen": 0.9750, "grand": 0.9750,
     "pprgo": 0.9775, "moe_gcn": 0.9750, "robustgcn": 0.9875,
-    "gnnguard_gcn": 1.0000, "gdc_gcn": 0.990625, "actgcn": 0.99375,
+    "gnnguard_gcn": 1.0000, "gdc_gcn": 0.99375, "actgcn": 0.995,
     "autognn": 0.9975,
 }
 
@@ -4402,17 +4425,19 @@ PATCHY_EPOCHS = 3
 PATCHY_PARITY_GRAPHS = 512
 # The quality runs: each model's mean test accuracy over seeds 0 to
 # SEEDS - 1 at its defaults for 100 epochs (each stage of the staged
-# wrappers), on sbm (PATCHY-SAN on the default random-graphs). Four seeds
-# (ROADMAP T5's cut of the script's run: eight before for Graph U-Net,
-# GCNMix, SAGN and M3S, whose accuracy over seeds 0-7 on the CPU spreads
-# wider than the margin: port 0.975-1.0, JAX 0.975-1.0, port 0.955-1.0,
-# JAX 0.965-0.995; on the card their four-seed means clear their bars by
-# 0.016-0.021); 16 for PATCHY-SAN, whose 60 default graphs leave 12 in
+# wrappers), on sbm (PATCHY-SAN on the default random-graphs). Two seeds
+# (ROADMAP T5's cuts of the script's run: eight for Graph U-Net, GCNMix,
+# SAGN and M3S, whose accuracy over seeds 0-7 on the CPU spreads wider
+# than the margin: port 0.975-1.0, JAX 0.975-1.0, port 0.955-1.0, JAX
+# 0.965-0.995, then four, now two; on the card seeds
+# 0 and 1 give Graph U-Net 0.975, 0.985, GCNMix 0.985, 0.965, SAGN 1.0,
+# 0.995, M3S 0.985, 0.99, C&S 1.0, 1.0, each mean 0.0125-0.0225 over its
+# bar); 16 for PATCHY-SAN, whose 60 default graphs leave 12 in
 # the test split (JAX 0.33-0.75 over seeds 0-15, port 0.42-0.92 over
 # 0-7). On sbm every node is in a split, so SAGN's and M3S's second stage
 # adds no label there
-STRAGGLER_QUALITY_SEEDS = {"graph_unet": 4, "gcnmix": 4, "sagn": 4,
-                           "m3s": 4, "correct_smooth_mlp": 4,
+STRAGGLER_QUALITY_SEEDS = {"graph_unet": 2, "gcnmix": 2, "sagn": 2,
+                           "m3s": 2, "correct_smooth_mlp": 2,
                            "patchy_san": 16}
 # The JAX package's own test accuracy at those settings, the mean over the
 # same seeds, on the CPU, each from
@@ -4421,9 +4446,12 @@ STRAGGLER_QUALITY_SEEDS = {"graph_unet": 4, "gcnmix": 4, "sagn": 4,
 #                  seed=list(range(SEEDS)))"
 # run from the repo root, DATASET sbm (random-graphs for patchy_san); the
 # card's bar is each less ZOO_QUALITY_MARGIN
-STRAGGLER_JAX_ACC = {"graph_unet": 0.98625, "gcnmix": 0.98875,
-                     "sagn": 0.99875, "m3s": 0.98875,
-                     "correct_smooth_mlp": 0.9975, "patchy_san": 0.53125}
+# (seeds 0 and 1: Graph U-Net 0.995, 0.98; GCNMix 0.975, 0.99; SAGN 1.0,
+# 1.0; M3S 0.985, 0.985; C&S 0.99, 1.0; over seeds 0-3 the means were
+# 0.98625, 0.98875, 0.99875, 0.98875, 0.9975)
+STRAGGLER_JAX_ACC = {"graph_unet": 0.9875, "gcnmix": 0.9825,
+                     "sagn": 1.0, "m3s": 0.985,
+                     "correct_smooth_mlp": 0.995, "patchy_san": 0.53125}
 
 
 def held_out_split(g, seed: int = 0):
@@ -5214,23 +5242,32 @@ KGE_PARITY_STEPS = 3
 KGE_PARITY_ROWS = 50
 # The quality runs, label → (dataset, model, run kwargs, score, seeds 0 to
 # n - 1): on sbm GCN on link_prediction (test AUC; the JAX package's seeds
-# give 0.750-0.816: eight, ROADMAP T5's first cut of the script's run,
-# where the JAX mean is 0.779435, over sixteen 0.778749) and the four
+# give 0.750-0.816: four since a cut of the script's run (ROADMAP T5),
+# where the JAX mean is 0.790204 and the card's seeds give 0.8133,
+# 0.8094, 0.7297, 0.7836; over eight 0.779435, over sixteen 0.778749) and
+# the four
 # clustering encoders (NMI;
 # GAE, VGAE and AGC reach 1.0 at seeds 0-7 in the JAX package, 0.99-1.0 in
-# the port) at their defaults, DAEGC at hidden 64 for 200 epochs evaluated
-# every fifth over seeds 0-3 (at its default 256 and 50 epochs the JAX
-# package's seeds give 0.59-0.99; at these 0.962-1.0 over seeds 0-7, mean
-# 0.986805; four seeds to keep the script's run short: ROADMAP T5), each
-# through experiment(); on the default random-kg RGCN and CompGCN through experiment() at the JAX test's settings (250
-# epochs, hidden 64, lr 0.01), and the triple embeddings through
+# the port) at their defaults, seed 0 alone since a cut of the script's
+# run (ROADMAP T5; two before; the JAX package's seed 0 gives 1.0 in all
+# three, the card's 0.9900, 0.9899, 1.0), DAEGC at hidden 64 for 200
+# epochs evaluated every fifth over seeds 0 and 1 (at its default 256 and
+# 50 epochs the JAX package's seeds give 0.59-0.99; at these 0.962-1.0
+# over seeds 0-7, mean 0.986805, over 0-3 0.981111, over 0-1 0.962223;
+# the card's seeds 0 and 1 1.0 and 0.9900; two seeds to keep the script's
+# run short: ROADMAP T5), each through experiment(); on the default
+# random-kg RGCN and CompGCN through experiment() at the JAX test's
+# settings (250 epochs, hidden 64, lr 0.01), and the triple embeddings through
 # TripleLinkPredictionWrapper for 300 epochs of one batch at lr 0.01
 # (experiment() hands them neither: at their own 50 epochs of 1e-3 they
 # stay at chance in both packages). A seed starts from the JAX package's
 # tables and draws its batches as it does, so the port's MRR is the JAX
-# package's seed for seed (RotatE within 0.003 of it), and two seeds make
-# a bar; from other tables a seed's MRR spreads 0.05-0.13 (DistMult),
-# 0.10-0.18 (ComplEx) and 0.12-0.28 (RotatE) over seeds 0-31
+# package's seed for seed (RotatE within 0.003 of it), and one seed makes
+# a bar (two until a cut of the script's run, ROADMAP T5; the JAX
+# package's seed 0 gives 0.020970, 0.104512, 0.256024, 0.132460, the
+# card's 0.020970, 0.104512, 0.253249, 0.132460); from other tables a
+# seed's MRR spreads 0.05-0.13 (DistMult), 0.10-0.18 (ComplEx) and
+# 0.12-0.28 (RotatE) over seeds 0-31
 # (cogdl_tpu_torch/scripts/kge_seeds.py --init torch), which a mean over a
 # few seeds does not hold within the margin. TransE stays at chance there in both (at γ = 12 and at 2):
 # a relation that shifts the ids cyclically comes back to its start,
@@ -5249,15 +5286,15 @@ KGE_PARITY_ROWS = 50
 #       ['test_mrr'] for s in range(SEEDS)])"
 # run from the repo root; the card's bar is each less ZOO_QUALITY_MARGIN
 KGE_QUALITY_KW = {"epochs": 300, "lr": 0.01}
-KGE_QUALITY_SEEDS = 2
+KGE_QUALITY_SEEDS = 1
 LINK_QUALITY_RUNS = {
     "gcn-link": ("sbm", "gcn", {"wrapper": "link_prediction", "epochs": 50},
-                 "test_auc", 8),
-    "gae": ("sbm", "gae", {"epochs": 50}, "test_nmi", 2),
-    "vgae": ("sbm", "vgae", {"epochs": 50}, "test_nmi", 2),
-    "agc": ("sbm", "agc", {"epochs": 50}, "test_nmi", 2),
+                 "test_auc", 4),
+    "gae": ("sbm", "gae", {"epochs": 50}, "test_nmi", 1),
+    "vgae": ("sbm", "vgae", {"epochs": 50}, "test_nmi", 1),
+    "agc": ("sbm", "agc", {"epochs": 50}, "test_nmi", 1),
     "daegc": ("sbm", "daegc", {"epochs": 200, "eval_step": 5,
-                               "hidden_size": 64}, "test_nmi", 4),
+                               "hidden_size": 64}, "test_nmi", 2),
     "kg-rgcn": ("random-kg", "rgcn", {"wrapper": "kg_link_prediction",
                                       "epochs": 250, "hidden_size": 64,
                                       "lr": 0.01, "patience": 400},
@@ -5270,10 +5307,10 @@ LINK_QUALITY_RUNS = {
                        KGE_QUALITY_SEEDS)
        for name in KGE_NAMES},
 }
-LINK_JAX_SCORE = {"gcn-link": 0.779435, "gae": 1.0, "vgae": 1.0, "agc": 1.0,
-                  "daegc": 0.981111, "kg-rgcn": 1.0, "kg-compgcn": 1.0,
-                  "kge-transe": 0.021663, "kge-distmult": 0.098247,
-                  "kge-rotate": 0.238696, "kge-complex": 0.139298}
+LINK_JAX_SCORE = {"gcn-link": 0.790204, "gae": 1.0, "vgae": 1.0, "agc": 1.0,
+                  "daegc": 0.962223, "kg-rgcn": 1.0, "kg-compgcn": 1.0,
+                  "kge-transe": 0.020970, "kge-distmult": 0.104512,
+                  "kge-rotate": 0.256024, "kge-complex": 0.132460}
 # card against CPU at the parity graph's size and on the FB15k-237-scale
 # KG: the evaluation pairs' AUC within this much
 LINK_AUC_TOL = 1e-3
@@ -6217,9 +6254,16 @@ EMB_FEAT = 128
 # K1 products of one run, (over D⁻¹A, over A): ProNE's Chebyshev filter
 # of ten steps and the propagation over A; ProNE++ six such filters
 EMB_K1_PRODUCTS = {"prone": (10, 1), "prone++": (60, 6)}
-# card against CPU on the PPI-scale graph at cut settings: the SGNS models
-# a few steps (one epoch of the pairs of one walk of 20 a node, ten steps;
-# LINE's of 200,000 edges, six), NetSMF ten rounds, ProNE++ two filters,
+# card against CPU at cut settings: the SGNS models on the PPI-scale
+# network, the others on one of 1,500 nodes at PPI's degree and labels
+# (formerly all on the PPI-scale one, whose CPU side took most of the
+# phase's 26-58 s in the dense float64 work cubic in the nodes; NetMF's
+# dense path the same at both sizes, emb_parity_branches). On the
+# smaller network the SGNS tables came 0.73-0.78 (node2vec) and 0.95-1.03
+# (LINE) of their tolerance apart, against 0.13-0.43 at PPI's scale, so
+# they stay there. The SGNS models a few steps (one epoch of the pairs of
+# one walk of 20 a node, ten steps; LINE's of 200,000 edges, six), NetSMF
+# ten rounds, ProNE++ two filters,
 # HOPE 8 triplets (ARPACK is the slowest of the CPU runs), the
 # autoencoders one epoch. Adam moves a weight by about ±lr whatever its
 # gradient's size, so a gradient at float32's rounding level (or near
@@ -6228,6 +6272,7 @@ EMB_K1_PRODUCTS = {"prone": (10, 1), "prone++": (60, 6)}
 # after four and 0.12-0.29× after ten (the largest entry grows faster
 # than the drift); the autoencoders 2.7-5.9e-4 of the largest entry apart
 # after three epochs and 0.6-2.0e-6 after one
+EMB_PARITY_SET = {"num_nodes": 1500, "num_edges": 29531, "num_labels": 50}
 EMB_PARITY_KW = {
     "deepwalk": {"walk_num": 1, "walk_length": 20, "iteration": 1},
     "node2vec": {"walk_num": 1, "walk_length": 20, "iteration": 1},
@@ -6479,22 +6524,40 @@ def _emb_parity_one(model: str, graph, device: torch.device):
     return float((got - want).abs().max()) / (atol + 1e-4 * top)
 
 
-def phase_emb_parity(device: torch.device, emb_set=EMB_PPI,
-                     models=EMB_MODELS, name: str = "ppi-ne"):
-    """Card against CPU on the network of ``emb_set`` from the same draws
-    (:class:`CpuDraws`): each model's embedding within ``1e-4·max|·|``
+def emb_parity_branches(emb_set):
+    """The size-dependent branches that emb-parity's models other than
+    DeepWalk, node2vec and LINE take on the network of ``emb_set``:
+    NetMF's dense or eigen path (the rest have none)."""
+    from cogdl_tpu_torch.models.emb import netmf
+
+    return {"netmf": ("dense" if emb_set["num_nodes"] <= netmf.DENSE_NODES
+                      else "eigen")}
+
+
+def phase_emb_parity(device: torch.device, emb_set=EMB_PARITY_SET,
+                     sgns_set=EMB_PPI, models=EMB_MODELS,
+                     name: str = "ppi-ne"):
+    """Card against CPU from the same draws (:class:`CpuDraws`), DeepWalk,
+    node2vec and LINE on the network of ``sgns_set``, the other models on
+    that of ``emb_set``: each model's embedding within ``1e-4·max|·|``
     (the SGNS tables within ``1e-5 + 1e-4·max|·|``), Spectral by its
     eigenvalues (``1e-6·max``) and its vectors up to sign, HOPE by its
     singular values and ``src·dstᵀ``; and ``f1_label_probe`` on the card
     against the CPU on the card's ProNE embedding
     (:data:`EMB_PARITY_PROBE`), each metric to 1e-6.
     Returns each model's error over its tolerance."""
+    print(f"[emb-parity] branches at PPI's scale "
+          f"{json.dumps(emb_parity_branches(EMB_PPI))}; here "
+          f"{json.dumps(emb_parity_branches(emb_set))}")
+    with emb_dataset(name, sgns_set):
+        sgns_graph = build_dataset(name).graph
     with emb_dataset(name, emb_set):
         ds = build_dataset(name)
     errs, secs = {}, {}
     for m in models:
         t0 = time.perf_counter()
-        errs[m] = _emb_parity_one(m, ds.graph, device)
+        errs[m] = _emb_parity_one(m, sgns_graph if m in EMB_SGNS
+                                  else ds.graph, device)
         secs[m] = round(time.perf_counter() - t0, 1)
     m = build_model("prone", seed=0)
     emb = m.train_embeddings(ds.graph, device)
@@ -6541,6 +6604,483 @@ def phase_emb_quality(device: torch.device, emb_set=EMB_PPI,
         raise AssertionError(f"emb-quality: below the JAX package's by more "
                              f"than {ZOO_QUALITY_MARGIN}: {short}")
     return scores
+
+
+# The heterogeneous and graph-level embeddings and GCC. metapath2vec,
+# hin2vec and PTE on HETERO_SET's ACM-scale graph (7,500 nodes, three node
+# types, two edge types) through network_embedding (its logistic-regression
+# branch); GATNE on a multiplex network at the scale of GATNE's Amazon
+# (Cen et al., KDD 2019, Table 2: 10,166 products, 148,865 edges of two
+# types), written as train / valid / test files and read by the port's
+# loader; graph2vec and DGK on GRAPH_SET's NCI1-scale graphs; GCC on the
+# main path's 100k graph at its wrapper's defaults (batches of 32 seeds,
+# subgraphs of 32 nodes from 64 steps of walk with restart, a queue of
+# 512, hidden 64, Set2Set 6 × 3). Each at its defaults (or BEST_CONFIGS).
+GATNE_AMAZON = {"num_nodes": 10166, "num_edges": 148865, "num_types": 2}
+# the share of each type's edges held out for validation and for test,
+# each with as many uniform negative pairs (GATNE's split: 85 / 5 / 10)
+GATNE_HELD_OUT = (0.05, 0.10)
+HETEMB_HIN = ("metapath2vec", "hin2vec", "pte")
+HETEMB_GRAPH = ("graph2vec", "dgk")
+HETEMB_MODELS = HETEMB_HIN + ("gatne",) + HETEMB_GRAPH + ("gcc",)
+# GCC's run: 3 epochs of 4 steps, a probe of 512 nodes each epoch and once
+# more at the end
+GCC_EPOCHS = 3
+# K1's widths in GCC's GIN layers: the first sums the subgraph features
+# (16 eigenvector columns, the seed flag, the degree), the other four the
+# hidden width
+GCC_FEATS = (18, 64)
+# card against CPU at cut settings, from the same draws (CpuDraws): the
+# SGNS models a few steps (one epoch of one walk a node; PTE 200,000
+# samples), hin2vec one epoch of its Adam steps, GATNE one epoch of each of
+# its three skip-grams; graph2vec and DGK over the first 1,000 graphs;
+# GCC three SGD steps from the same weights over the same unions (Adam's
+# first steps move a weight by about ±lr whatever its gradient, so a
+# gradient at float32's rounding level steps differently on either device)
+HETEMB_PARITY_KW = {
+    "metapath2vec": {"walk_num": 1, "iteration": 1},
+    "hin2vec": {"walk_num": 1, "epochs": 1},
+    "pte": {"num_samples": 200_000, "iteration": 1},
+    "gatne": {"walk_num": 1, "iteration": 1},
+}
+HETEMB_PARITY_GRAPHS = 1000
+GCC_PARITY_STEPS = 3
+# The quality runs: hetemb-main's seed 0 and the seeds after it, each
+# model's mean over its seeds held to the JAX package's mean over the same
+# seeds less ZOO_QUALITY_MARGIN (graph2vec and DGK are deterministic: one).
+# GCC's embeddings are structural (subgraph eigenvectors, degrees) and
+# sbm's four communities are alike in structure, so its probe sits at
+# chance (0.25) in both packages; it runs on a 2,000-node sbm, 1,000 of
+# its nodes embedded, 3 epochs with the probe at the end, over four seeds
+# (with every node embedded, over seeds 0-7, the JAX package's accuracy
+# spread 0.253-0.273, mean 0.26075, and the port's on the card
+# 0.256-0.275, mean 0.264; half the probe halves the phase's time). That
+# bar does not tell a broken encoder from a sound one, and none the run
+# can afford does: on degree-quartile classes (GCC_PROBE_SET) the probe
+# rises above chance, but a seed's accuracy spreads with a standard
+# deviation of about 0.045 in both packages (seeds 0-7 after 3 epochs:
+# the JAX package 0.277-0.434, mean 0.388025; the port on the CPU
+# 0.350-0.486, mean 0.3977), so a mean held within 0.02 would need some
+# forty seeds. GCC's path on the card is held instead by hetemb-parity,
+# which embeds GCC_PROBE_SET's nodes on the card and on the CPU from the
+# same weights and walks and probes both.
+# HETEMB_JAX_SCORE was computed on the CPU, from the repo root, by
+#   PYTHONPATH=. python tests/test_torch_chip_smoke_hetemb.py MODEL SEEDS
+# (the JAX GCC on its numpy branch, whose subgraphs keep the seed at node
+# 0 as the port's do; its library branch does not, ROADMAP.md §3). Its
+# seeds: metapath2vec 0.774133, 0.769867 (0.769067, 0.767200 at seeds 2
+# and 3; the card's seeds 0 and 1 gave 0.7627 and 0.7600, the port's on
+# the CPU 0.7651-0.7741 over seeds 0-3, mean 0.7696); hin2vec and PTE 1.0
+# at seeds 0 and 1, one seed each (the card's two 1.0 too); GATNE
+# 0.690457 and 0.714565 at seeds 0 and 1 (the card's 0.7082, 0.7103); GCC
+# over seeds 0-3 at GCC_QUALITY_KW 0.254509, 0.275720, 0.262097, 0.270325
+HETEMB_QUALITY_SEEDS = {"metapath2vec": 2, "gatne": 2, "gcc": 4}
+GCC_QUALITY_SBM = {"num_nodes": 2000}
+GCC_QUALITY_KW = {"epochs": 3, "eval_step": 3, "probe_nodes": 1000}
+HETEMB_JAX_SCORE = {"metapath2vec": 0.772000, "hin2vec": 1.0, "pte": 1.0,
+                    "gatne": 0.702511, "graph2vec": 0.998054,
+                    "dgk": 0.999757, "gcc": 0.265663}
+# hetemb-parity's GCC probe: a seeded graph at usa-airport's node count
+# (1,190; Ribeiro et al., struc2vec, KDD 2017) whose four classes are
+# degree quartiles, as usa-airport's are quartiles of an airport's
+# activity, at a quarter of its 13,599 edges (at its density every
+# quartile's walks fill their 32 nodes and the probe sits at chance)
+GCC_PROBE_SET = {"num_nodes": 1190, "num_edges": 3570}
+
+
+def degree_quartile_network(num_nodes: int, num_edges: int, seed: int = 0):
+    """A seeded graph whose labels follow structure: the ``num_edges``
+    undirected edges of :func:`embedding_network` (a heavy-tailed degree),
+    each node labelled by the quartile of its degree (four classes of
+    equal size, ties broken by node id), split 30 / 20 / 50% into train,
+    val and test by a permutation of ``default_rng(seed + 1)``. Returns the
+    keyword arguments of ``from_coo``: ``edge_index`` int64 ``[2,
+    2·num_edges]`` (both directions), ``num_nodes``, ``y`` int32, the three
+    masks and ``meta``."""
+    A, _ = embedding_network(num_nodes, num_edges, 8, seed)
+    coo = A.tocoo()
+    deg = np.diff(A.indptr)
+    rank = np.empty(num_nodes, np.int64)
+    rank[np.argsort(deg, kind="stable")] = np.arange(num_nodes)
+    perm = np.random.default_rng(seed + 1).permutation(num_nodes)
+    n_train, n_val = int(0.3 * num_nodes), int(0.2 * num_nodes)
+    masks = {k: np.zeros(num_nodes, bool)
+             for k in ("train_mask", "val_mask", "test_mask")}
+    masks["train_mask"][perm[:n_train]] = True
+    masks["val_mask"][perm[n_train: n_train + n_val]] = True
+    masks["test_mask"][perm[n_train + n_val:]] = True
+    return dict(edge_index=np.stack([coo.row, coo.col]).astype(np.int64),
+                num_nodes=num_nodes,
+                y=(rank * 4 // num_nodes).astype(np.int32),
+                meta={"num_classes": 4, "name": "degree-quartiles"}, **masks)
+
+
+def multiplex_network(num_nodes: int, num_edges: int, num_types: int,
+                      seed: int = 0):
+    """A seeded multiplex network: the ``num_edges`` undirected edges of
+    :func:`embedding_network` (communities, a heavy-tailed degree), each
+    of type ``(c_u + c_v) % num_types`` (``c`` a node's first community)
+    with probability 0.8, else a uniform type; the edges split into train,
+    valid and test by the shares :data:`GATNE_HELD_OUT`, and each held-out
+    split given as many uniform negative pairs. Returns
+    ``{"train": int64 [E, 3] (type, u, v), "valid" / "test": int64 [E, 4]
+    (type, u, v, label)}``."""
+    import scipy.sparse as sps
+
+    A, groups = embedding_network(num_nodes, num_edges,
+                                  max(2 * num_types, 8), seed)
+    rng = np.random.default_rng(seed + 1)
+    upper = sps.triu(A, 1).tocoo()
+    u, v = upper.row.astype(np.int64), upper.col.astype(np.int64)
+    comm = np.asarray(groups.argmax(1)).ravel()
+    t = np.where(rng.random(u.size) < 0.8, (comm[u] + comm[v]) % num_types,
+                 rng.integers(0, num_types, u.size))
+    which = rng.random(u.size)
+    share_valid, share_test = GATNE_HELD_OUT
+    valid = which < share_valid
+    test = (which >= share_valid) & (which < share_valid + share_test)
+    out = {"train": np.stack([t, u, v], 1)[~(valid | test)]}
+    for split, sel in (("valid", valid), ("test", test)):
+        pos = np.stack([t[sel], u[sel], v[sel], np.ones(sel.sum(), np.int64)],
+                       1)
+        neg = np.stack([t[sel], rng.integers(0, num_nodes, sel.sum()),
+                        rng.integers(0, num_nodes, sel.sum()),
+                        np.zeros(sel.sum(), np.int64)], 1)
+        out[split] = np.concatenate([pos, neg])
+    return out
+
+
+def write_multiplex(root: str, name: str, net) -> str:
+    """``net``'s splits as ``<root>/<name>/raw/{train,valid,test}.txt``, the
+    GATNE loader's files; returns the raw directory."""
+    raw = os.path.join(root, name, "raw")
+    os.makedirs(raw, exist_ok=True)
+    for split, rows in net.items():
+        with open(os.path.join(raw, f"{split}.txt"), "w") as f:
+            f.write("\n".join(" ".join(map(str, r)) for r in rows.tolist()))
+            f.write("\n")
+    return raw
+
+
+@functools.lru_cache(maxsize=2)
+def _multiplex(items):
+    return multiplex_network(**dict(items))
+
+
+@contextlib.contextmanager
+def gatne_dataset(name: str, net_set):
+    """The multiplex network of ``net_set`` written as ``name``'s GATNE
+    files under a fresh data root, which the port's loader reads while the
+    block runs; the directory is removed after."""
+    from cogdl_tpu_torch import datasets as port_datasets
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gatne_")
+    old = port_datasets.DATA_ROOT
+    try:
+        write_multiplex(root, name, _multiplex(tuple(sorted(
+            net_set.items()))))
+        port_datasets.DATA_ROOT = root
+        yield name
+    finally:
+        port_datasets.DATA_ROOT = old
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _gcc_wrapper(num_classes: int, **kw):
+    from cogdl_tpu_torch.wrappers.pretraining import GCCWrapper
+
+    return GCCWrapper(build_model("gcc", in_features=18,
+                                  out_features=num_classes), **kw)
+
+
+def _gcc_expected(steps: int, evals: int, chunks: int, on_card: bool,
+                  layers: int = 5, feats=GCC_FEATS):
+    """K1 launches of a GCC run: each step the query encoder's ``layers``
+    sums forward over the union's CSR (the first at ``feats[0]``, the rest
+    at ``feats[1]``) and the backward of all but the first over its CSC
+    (the first layer's input carries no gradient), and the key encoder's
+    ``layers`` forward; each of an evaluation's ``chunks`` unions the
+    encoder's forward."""
+    if not on_card:
+        return {}
+    f0, h = feats
+    fwd = 2 * steps + evals * chunks
+    return {"spmm_csr": {("csr", f0): fwd, ("csr", h): (layers - 1) * fwd,
+                         ("csc", h): (layers - 1) * steps}}
+
+
+def phase_hetemb_kernel_check(device: torch.device, num_nodes: int = NUM_NODES,
+                              feats=GCC_FEATS, iters: int = 20):
+    """K1 over one union of GCC's subgraphs (the wrapper's defaults: 64
+    subgraphs of at most 32 nodes from the main path's graph, built on the
+    host as a train step's) in both directions at both of GCC's widths,
+    checked and timed by :func:`_k1_entry`. Returns the entries."""
+    w = _gcc_wrapper(NUM_CLASSES)
+    g = w.prepare_graph(main_graph(num_nodes))
+    batch = w.train_batches(g)[0].to(device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    entries = [_k1_entry(f"spmm_csr[{'csr' if d == 'fw' else 'csc'},F={f},"
+                         f"GCC union]", batch.extras, d, f, gen, device, iters)
+               for d in ("fw", "bw") for f in feats]
+    for e in entries:
+        e["union_nodes"] = batch.num_nodes
+        e["union_edges"] = batch.num_edges
+        print(f"[hetemb-kernel] {json.dumps(e)}")
+    return entries
+
+
+def _emb_record(res, seconds, device, counts, keep):
+    stats = res["stats"]
+    steps = stats.get("sgns_steps", stats.get("adam_steps"))
+    return {"seconds": seconds, "embed_s": res["embed_s"], "stats": stats,
+            "ms_per_step": (stats["train_s"] * 1e3 / steps if steps
+                            else None),
+            **{k: res[k] for k in keep if k in res},
+            "peak_hbm_bytes": (torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None),
+            "launches": {k: {",".join(map(str, c)): v for c, v in d.items()}
+                         for k, d in counts.items()}}
+
+
+def _embedding_run(tag: str, model: str, ds, device: torch.device, keep,
+                   seed: int = 0, **kw):
+    """One embedding run (a wrapper with ``run_embedding``) through
+    ``experiment(use_best_config=True)`` from zeroed launch counts, which
+    must stay zero: none of these models launches a kernel of ours."""
+    sk.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    (res,) = next(iter(experiment(dataset=ds, model=model, seed=seed,
+                                  use_best_config=True, device=str(device),
+                                  **kw).values()))
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    if counts:
+        raise AssertionError(f"{tag} {model} launched {counts}; expected "
+                             "none")
+    return res, _emb_record(res, seconds, device, counts, keep)
+
+
+def phase_hetemb_main(device: torch.device, hetero_set=HETERO_SET,
+                      graph_set=GRAPH_SET, amazon=GATNE_AMAZON,
+                      num_nodes: int = NUM_NODES, gcc_epochs: int = GCC_EPOCHS,
+                      model_kw=None, gcc_kw=None):
+    """The seven models through ``experiment()`` at their defaults:
+    metapath2vec, hin2vec and PTE on the ACM-scale graph (test accuracy of
+    the probe), GATNE on the Amazon-scale files (AUC of each type's test
+    pairs), graph2vec and DGK on the NCI1-scale graphs (3-fold SVC
+    accuracy), each with its wall time by stage (``stats``), no kernel of
+    ours launched and the peak of allocated card memory; GCC on the main
+    path's graph for ``gcc_epochs`` epochs, a probe each, with the exact K1
+    launches of :func:`_gcc_expected`, ``train_step_ms``, ``eval_ms`` and
+    one profiled step. ``model_kw`` and ``gcc_kw`` override settings (a
+    rehearsal's smaller ones). Returns each run's record, the scores and
+    the launches by case."""
+    on_card = device.type == "cuda"
+    info, scores = {}, {}
+    model_kw = model_kw or {}
+    hds = hetero_dataset(_hetero_items(hetero_set))
+    for model in HETEMB_HIN:
+        res, info[model] = _embedding_run(
+            "hetemb-main", model, hds, device,
+            ("test_acc", "val_acc", "probe_ms", "probe_iters"),
+            **model_kw.get(model, {}))
+        scores[model] = res["test_acc"]
+    with gatne_dataset("amazon", amazon):
+        ads = build_dataset("amazon")
+        res, info["gatne"] = _embedding_run(
+            "hetemb-main", "gatne", ads, device,
+            ("test_auc", "auc_type0", "auc_type1"),
+            **model_kw.get("gatne", {}))
+        info["gatne"]["graph"] = {"nodes": ads.graph.num_nodes,
+                                  "edges": ads.graph.num_edges}
+        scores["gatne"] = res["test_auc"]
+    gds = graph_dataset(tuple(sorted(graph_set.items())))
+    for model in HETEMB_GRAPH:
+        res, info[model] = _embedding_run(
+            "hetemb-main", model, gds, device,
+            ("test_acc", "acc_std", "svc_s"), **model_kw.get(model, {}))
+        scores[model] = res["test_acc"]
+    # GCC on the main path's graph
+    gcc_kw = dict(gcc_kw or {})
+    ds = Dataset.from_graph(main_graph(num_nodes),
+                            name=f"powerlaw-{num_nodes}")
+    w = _gcc_wrapper(ds.num_classes, **gcc_kw)
+    steps = gcc_epochs * w.batches_per_epoch
+    evals = gcc_epochs + 1
+    chunks = -(-min(num_nodes, w.probe_nodes) // (2 * w.batch_size))
+    expected = _gcc_expected(steps, evals, chunks, on_card)
+    t0 = time.perf_counter()
+    res, counts = _checked_run("hetemb-main", "gcc", device, expected,
+                               dataset=ds, model="gcc", epochs=gcc_epochs,
+                               patience=gcc_epochs + 1, eval_step=1,
+                               **gcc_kw)
+    info["gcc"] = _run_record(res, device, ("test_acc", "probe_ms"), counts,
+                              t0)
+    info["gcc"].update(steps=steps, evaluations=evals,
+                       chunks_per_evaluation=chunks,
+                       profile=_profiled_step(_gcc_wrapper(ds.num_classes,
+                                                           **gcc_kw),
+                                              ds, device))
+    scores["gcc_main"] = res["test_acc"]
+    print(f"[hetemb-main] {json.dumps(info)}")
+    info["scores"] = scores
+    info["launches_by"] = {k: dict(d) for k, d in counts.items()}
+    return info
+
+
+def _gcc_parity(device: torch.device, num_nodes: int,
+                steps: int = GCC_PARITY_STEPS, probe_set=GCC_PROBE_SET, **kw):
+    """GCC's loss over ``steps`` SGD steps (lr 0.01, momentum 0.9) on
+    ``device`` and on the CPU, from the same initial weights and queue (the
+    trainer's CPU initialisation) over the same unions (built once on the
+    host): the largest loss difference over 1e-4, the queue's over 1e-5,
+    and the pointers equal. Then each model embeds every node of the
+    :func:`degree_quartile_network` of ``probe_set`` from the same walks
+    (its probe's path): the embeddings' largest difference over
+    ``1e-4·max|·|``, and ``logreg_probe``'s test accuracy on the card's
+    embeddings, fitted on the card and on the CPU, over
+    :data:`SSL_PROBE_ACC_TOL`."""
+    g = main_graph(num_nodes)
+    pg = from_coo(**degree_quartile_network(**probe_set))
+    runs = []
+    batches = None
+    for dev in (device, torch.device("cpu")):
+        w = _gcc_wrapper(NUM_CLASSES, **kw)
+        gd = w.prepare_graph(g.to(dev))
+        if batches is None:
+            w._graph = g
+            batches = w.train_batches(g)
+            w._graph = gd
+        w.model.to("cpu")
+        w.init(torch.Generator().manual_seed(0), gd)
+        w.model.to(dev)
+        cfg = TrainerConfig(lr=0.01, optimizer="sgd", device=str(dev))
+        opt, sched = build_optimizer(cfg, w.model.parameters())
+        gen = torch.Generator(device=dev).manual_seed(0)
+        losses = [float(Trainer(cfg).train_step(
+            w, opt, sched, batches[i % len(batches)].to(dev), gen))
+            for i in range(steps)]
+        gp = w.prepare_graph(pg.to(dev))
+        emb = w.embed_nodes(np.arange(pg.num_nodes), np.random.default_rng(0))
+        runs.append((losses, w.model.moco.queue.cpu(), int(w.model.moco.ptr),
+                     emb, gp))
+    (lc, qc, pc, ec, gc), (lh, qh, ph, eh, gh) = runs
+    if pc != ph:
+        raise AssertionError(f"hetemb-parity gcc: queue pointers {pc}, {ph}")
+    acc = [logreg_probe(ec, gc)["test_acc"],
+           logreg_probe(ec.cpu(), gh)["test_acc"]]
+    print(f"[hetemb-parity] gcc probe on {pg.num_nodes} nodes' degree "
+          f"quartiles: test_acc card {acc[0]:.4f}, CPU {acc[1]:.4f}")
+    return {"gcc_loss": max(abs(a - b) for a, b in zip(lc, lh)) / 1e-4,
+            "gcc_queue": float((qc - qh).abs().max()) / 1e-5,
+            "gcc_embed": float((ec.cpu() - eh).abs().max())
+            / (1e-4 * float(eh.abs().max())),
+            "gcc_probe": abs(acc[0] - acc[1]) / SSL_PROBE_ACC_TOL}
+
+
+def phase_hetemb_parity(device: torch.device, hetero_set=HETERO_SET,
+                        graph_set=GRAPH_SET, amazon=GATNE_AMAZON,
+                        num_nodes: int = NUM_NODES,
+                        graphs: int = HETEMB_PARITY_GRAPHS, gcc_kw=None,
+                        gcc_probe_set=GCC_PROBE_SET):
+    """Card against CPU at :data:`HETEMB_PARITY_KW` from the same draws
+    (:class:`CpuDraws`): the SGNS and Adam tables of metapath2vec,
+    hin2vec, PTE and GATNE (each type's) within ``1e-5 + 1e-4·max|·|``;
+    graph2vec's and DGK's embeddings of the first ``graphs`` graphs
+    elementwise within ``1e-4·max|·|`` where consecutive singular values
+    differ, by singular values and subspace otherwise; GCC's loss over
+    three steps within 1e-4 and its queue within 1e-5, then its probe's
+    path on ``gcc_probe_set`` (:func:`_gcc_parity`). Returns each error
+    over its tolerance."""
+    errs, secs = {}, {}
+    hg = hetero_dataset(_hetero_items(hetero_set)).graph
+    gs = graph_dataset(tuple(sorted(graph_set.items()))).graphs[:graphs]
+    with gatne_dataset("amazon", amazon):
+        ag = build_dataset("amazon").graph
+    for model in HETEMB_HIN + ("gatne",) + HETEMB_GRAPH:
+        t0 = time.perf_counter()
+        outs = []
+        for dev in (device, torch.device("cpu")):
+            m = build_model(model, seed=0, **HETEMB_PARITY_KW.get(model, {}))
+            m.draws = CpuDraws
+            if model in HETEMB_GRAPH:
+                outs.append(m.train_graph_embeddings(gs, dev))
+            else:
+                out = m.train_embeddings(ag if model == "gatne" else hg, dev)
+                outs.append(out if isinstance(out, dict) else {0: out})
+        if model in HETEMB_GRAPH:
+            # U·√Σ: the singular values are the columns' squared norms
+            errs[model] = _columns_match(outs[0].cpu(), outs[1],
+                                         (outs[1].double() ** 2).sum(0),
+                                         1e-4)
+        else:
+            errs[model] = max(
+                float((outs[0][t].cpu() - want).abs().max())
+                / (1e-5 + 1e-4 * float(want.abs().max()))
+                for t, want in outs[1].items())
+        secs[model] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    errs.update(_gcc_parity(device, num_nodes, probe_set=gcc_probe_set,
+                            **(gcc_kw or {})))
+    secs["gcc"] = round(time.perf_counter() - t0, 1)
+    print(f"[hetemb-parity] err/tol {json.dumps(errs)}; seconds (card and "
+          f"CPU) {json.dumps(secs)}")
+    bad = {k: v for k, v in errs.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"hetemb-parity: card and CPU disagree: {bad}")
+    return errs
+
+
+def phase_hetemb_quality(device: torch.device, hetero_set=HETERO_SET,
+                         graph_set=GRAPH_SET, amazon=GATNE_AMAZON,
+                         first=None, models=HETEMB_MODELS, seeds=None,
+                         model_kw=None, gcc_sbm=GCC_QUALITY_SBM,
+                         gcc_kw=GCC_QUALITY_KW):
+    """Each model's score through ``experiment(use_best_config=True)``:
+    test accuracy (metapath2vec, hin2vec, PTE), mean AUC (GATNE), 3-fold
+    accuracy (graph2vec, DGK) on hetemb-main's sets, GCC's probe accuracy
+    on a ``gcc_sbm`` sbm graph at ``gcc_kw``; the mean over the seeds of
+    :data:`HETEMB_QUALITY_SEEDS` (at most ``seeds``), seed 0 taken from
+    ``first`` (hetemb-main's scores) where it ran at these settings, held
+    to :data:`HETEMB_JAX_SCORE` less :data:`ZOO_QUALITY_MARGIN`."""
+    first = first or {}
+    model_kw = model_kw or {}
+    per_seed, secs = {}, {}
+    with gatne_dataset("amazon", amazon):
+        sets = {"gatne": build_dataset("amazon"),
+                "gcc": build_dataset("sbm", **gcc_sbm)}
+        sets.update({m: hetero_dataset(_hetero_items(hetero_set))
+                     for m in HETEMB_HIN})
+        sets.update({m: graph_dataset(tuple(sorted(graph_set.items())))
+                     for m in HETEMB_GRAPH})
+        for model in models:
+            n = min(HETEMB_QUALITY_SEEDS.get(model, 1), seeds or 1 << 30)
+            t0 = time.perf_counter()
+            scores = [first[model]] if model in first else []
+            kw = dict(model_kw.get(model, {}),
+                      **(gcc_kw if model == "gcc" else {}))
+            for s in range(len(scores), n):
+                (res,) = next(iter(experiment(
+                    dataset=sets[model], model=model, seed=s,
+                    use_best_config=True, device=str(device),
+                    **kw).values()))
+                scores.append(res["test_auc" if model == "gatne"
+                                  else "test_acc"])
+            per_seed[model] = scores
+            secs[model] = round(time.perf_counter() - t0, 1)
+    means = {m: float(np.mean(v)) for m, v in per_seed.items()}
+    print(f"[hetemb-quality] {json.dumps(means)} (JAX package "
+          f"{json.dumps(HETEMB_JAX_SCORE)}, margin {ZOO_QUALITY_MARGIN}); by "
+          f"seed {json.dumps(per_seed)}; seconds {json.dumps(secs)}")
+    short = {m: v for m, v in means.items()
+             if v < HETEMB_JAX_SCORE[m] - ZOO_QUALITY_MARGIN}
+    if short:
+        raise AssertionError(f"hetemb-quality: below the JAX package's by "
+                             f"more than {ZOO_QUALITY_MARGIN}: {short}")
+    return means
 
 
 def timed(phase, *args, **kw):
@@ -6741,6 +7281,18 @@ def main(argv=None) -> int:
     for e, n in zip(emb_entries, emb_info["products"]):
         e["launches"] = n
     entries += emb_entries
+    # the heterogeneous and graph-level embeddings and GCC
+    kernel_graph.cache_clear()
+    hetemb_entries = timed(phase_hetemb_kernel_check, device)
+    hetemb_info = timed(phase_hetemb_main, device)
+    timed(phase_hetemb_parity, device)
+    hetemb_scores = timed(phase_hetemb_quality, device,
+                          first=hetemb_info["scores"])
+    for e in hetemb_entries:
+        kernel, *case = e["case"]
+        e["launches"] = hetemb_info["launches_by"].get(kernel, {}).get(
+            tuple(case), 0)
+    entries += hetemb_entries
     for e in entries:
         kernel, *case = e.pop("case", [None])
         for key, run in (("launches_host_sampled", host_info),
@@ -6754,7 +7306,8 @@ def main(argv=None) -> int:
                          ("launches_ssl", ssl_info),
                          ("launches_link", link_info),
                          ("launches_rec_traffic", rt_launches),
-                         ("launches_emb", emb_info)):
+                         ("launches_emb", emb_info),
+                         ("launches_hetemb", hetemb_info)):
             e[key] = run["launches_by"].get(kernel, {}).get(tuple(case), 0)
     print(f"[done] {time.perf_counter() - t0:.1f} s; GCN main path "
           f"train_step_ms={main_info['train_step_ms']:.3f} "
@@ -6863,6 +7416,15 @@ def main(argv=None) -> int:
                       for k, v in emb_info.items() if k in EMB_MODELS)
           + "; emb-quality micro-F1 "
           + ", ".join(f"{k} {v:.4f}" for k, v in emb_scores.items())
+          + "; heterogeneous and graph embeddings s (embed s, peak GB) "
+          + ", ".join(f"{k} {hetemb_info[k]['seconds']:.2f} "
+                      f"({hetemb_info[k]['embed_s']:.2f}, "
+                      f"{hetemb_info[k]['peak_hbm_bytes'] / 1e9:.2f})"
+                      for k in HETEMB_MODELS if k != "gcc")
+          + f"; GCC train_step_ms {hetemb_info['gcc']['train_step_ms']:.3f} "
+          f"(eval_ms {hetemb_info['gcc']['eval_ms']:.3f})"
+          + "; hetemb-quality "
+          + ", ".join(f"{k} {v:.4f}" for k, v in hetemb_scores.items())
           + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": entries}))

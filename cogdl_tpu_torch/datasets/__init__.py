@@ -1,8 +1,8 @@
 """Dataset registry — the port of ``cogdl_tpu/datasets/__init__.py`` for the
-offline synthetic names and the heterogeneous, recommendation, PeMS and
-MATLAB ``.mat`` loaders. ``build_dataset(name)`` returns a :class:`Dataset` holding one CPU
-graph, for ``random-graphs`` a
-list of small CPU graphs with their labels, or for ``random-kg`` a dict of
+offline synthetic names and the heterogeneous, recommendation, PeMS,
+MATLAB ``.mat``, GATNE and GCC loaders. ``build_dataset(name)`` returns a
+:class:`Dataset` holding one CPU graph, for ``random-graphs`` a list of
+small CPU graphs with their labels, or for ``random-kg`` a dict of
 KG triples; the trainer (or, for a list, the graph classification wrapper)
 moves them to the device.
 
@@ -47,6 +47,23 @@ SUPPORTED_DATASETS: Dict[str, str] = {
     "dblp-ne": "cogdl_tpu_torch.datasets.matlab.build",
     "flickr-ne": "cogdl_tpu_torch.datasets.matlab.build",
     "youtube-ne": "cogdl_tpu_torch.datasets.matlab.build",
+    # GATNE multiplex (reference datasets/gatne.py)
+    "amazon": "cogdl_tpu_torch.datasets.gatne_data.build",
+    "twitter": "cogdl_tpu_torch.datasets.gatne_data.build",
+    "youtube": "cogdl_tpu_torch.datasets.gatne_data.build",
+    # GCC pretraining and evaluation corpora (reference
+    # datasets/gcc_data.py)
+    "usa-airport": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "h-index": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_academic": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_dblp_netrep": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_dblp_snap": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_facebook": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_imdb": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "gcc_livejournal": "cogdl_tpu_torch.datasets.gcc.build_edgelist",
+    "kdd_icdm": "cogdl_tpu_torch.datasets.gcc.build_paired",
+    "sigir_cikm": "cogdl_tpu_torch.datasets.gcc.build_paired",
+    "sigmod_icde": "cogdl_tpu_torch.datasets.gcc.build_paired",
 }
 
 OFFLINE_NAMES = ("sbm | sbm-small | sbm-large | powerlaw-<N>[k|m] | "

@@ -11,10 +11,11 @@ from .rgcn_layer import RGCNLayer
 from .sage_layer import SAGELayer
 from .saint_layer import SAINTLayer
 from .se_layer import SELayer
+from .set2set import Set2Set
 from .sgc_layer import SGCLayer
 from .utils import CDense, MaskedBatchNorm, get_activation
 
 __all__ = ["APPNPProp", "GENConv", "ResGNNLayer", "GATLayer", "GCNLayer",
            "GCNIILayer", "GINLayer", "HANLayer", "MixHopLayer", "MLP",
-           "RGCNLayer", "SAGELayer", "SAINTLayer", "SELayer", "SGCLayer",
-           "CDense", "MaskedBatchNorm", "get_activation"]
+           "RGCNLayer", "SAGELayer", "SAINTLayer", "SELayer", "Set2Set",
+           "SGCLayer", "CDense", "MaskedBatchNorm", "get_activation"]

@@ -20,9 +20,10 @@ themselves, not modules), LightGCN (``lightgcn``) for recommendation,
 the traffic forecasters ``stgcn`` and ``stgat``, and the homogeneous
 network embeddings ``deepwalk``, ``node2vec``, ``line``, ``netmf``,
 ``netsmf``, ``prone``, ``prone++``, ``hope``, ``grarep``, ``spectral``,
-``sdne`` and ``dngr`` (plain objects too) are ported so far; every
-other name of the JAX registry waits in ROADMAP.md §1 ("Modules to
-port").
+``sdne`` and ``dngr``, the heterogeneous and graph-level embeddings
+``metapath2vec``, ``hin2vec``, ``pte``, ``gatne``, ``graph2vec`` and
+``dgk`` (plain objects too), and GCC's encoder ``gcc``: every name of
+the JAX registry.
 """
 
 from __future__ import annotations
@@ -113,6 +114,13 @@ SUPPORTED_MODELS: Dict[str, str] = {
     "spectral": "cogdl_tpu_torch.models.emb.spectral.Spectral",
     "sdne": "cogdl_tpu_torch.models.emb.sdne.SDNE",
     "dngr": "cogdl_tpu_torch.models.emb.dngr.DNGR",
+    "metapath2vec": "cogdl_tpu_torch.models.emb.metapath2vec.Metapath2Vec",
+    "hin2vec": "cogdl_tpu_torch.models.emb.hin2vec.Hin2Vec",
+    "pte": "cogdl_tpu_torch.models.emb.pte.PTE",
+    "gatne": "cogdl_tpu_torch.models.emb.gatne.GATNE",
+    "graph2vec": "cogdl_tpu_torch.models.emb.graph2vec.Graph2Vec",
+    "dgk": "cogdl_tpu_torch.models.emb.dgk.DeepGraphKernel",
+    "gcc": "cogdl_tpu_torch.models.nn.gcc.GCC",
 }
 # (torch.nn is imported by name: the subpackage ``models.nn`` would shadow it)
 
@@ -148,7 +156,8 @@ def build_model(name: str, **kwargs) -> Any:
 def load_jax_params(model: Module, params: Mapping,
                     batch_stats: Optional[Mapping] = None,
                     teacher: Optional[Mapping] = None,
-                    ema: Optional[Mapping] = None) -> Module:
+                    ema: Optional[Mapping] = None,
+                    moco: Optional[Mapping] = None) -> Module:
     """Fill ``model`` in place from the JAX package's flax variables, given
     as nested dicts of arrays (``variables["params"]`` and, for batch norm,
     ``variables["batch_stats"]``).
@@ -177,10 +186,15 @@ def load_jax_params(model: Module, params: Mapping,
     parameters (GraphMAE2's ``enc`` and ``proj``); ``ema``
     (``variables["ema"]``) fills ``ema_step``. The self-auxiliary wrapper's
     ``{"model": …, "aux": …}`` fills the model from ``model`` and its
-    ``aux`` head (attached by the wrapper's ``init``) from ``aux``.
+    ``aux`` head (attached by the wrapper's ``init``) from ``aux``. GCC's
+    MoCo state, ``moco`` (the JAX wrapper's ``variables["moco"]``), fills
+    the buffers the port's ``GCCWrapper.init`` attaches: the key weights
+    ``moco.key`` from ``key_params`` (mapped as parameters are),
+    ``moco.queue`` and ``moco.ptr``.
 
-    Raises if a parameter of the model (or, when ``teacher`` is given, a
-    teacher buffer) is left unfilled or a leaf has no place in it."""
+    Raises if a parameter of the model (or, when ``teacher`` or ``moco``
+    is given, one of its buffers) is left unfilled or a leaf has no place
+    in it."""
     state: Dict[str, torch.Tensor] = {}
 
     def _submodule(path: str):
@@ -230,6 +244,11 @@ def load_jax_params(model: Module, params: Mapping,
             walk(teacher, "teacher.", True)
     if ema is not None:
         state["ema_step"] = torch.tensor(float(np.asarray(ema["step"])))
+    if moco is not None:
+        walk(moco["key_params"], "moco.key.", True)
+        state["moco.queue"] = torch.from_numpy(
+            np.array(moco["queue"], dtype=np.float32))
+        state["moco.ptr"] = torch.tensor(int(np.asarray(moco["ptr"])))
     # a parameter the model sizes from its first graph (LightGCN's ``emb``
     # table, still without rows) takes the leaf's shape
     for name, p in list(model.named_parameters()):
@@ -240,7 +259,8 @@ def load_jax_params(model: Module, params: Mapping,
     result = model.load_state_dict(state, strict=False)
     param_names = {n for n, _ in model.named_parameters()}
     missing = [k for k in result.missing_keys if k in param_names
-               or (teacher is not None and k.startswith("teacher."))]
+               or (teacher is not None and k.startswith("teacher."))
+               or (moco is not None and k.startswith("moco."))]
     if missing or result.unexpected_keys:
         raise KeyError(f"load_jax_params: unfilled parameters {missing}, "
                        f"leaves with no place {result.unexpected_keys}")

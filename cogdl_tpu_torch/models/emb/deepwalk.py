@@ -40,13 +40,14 @@ class DeepWalk(EmbeddingModel):
         return sgns_embedding(self, walks, graph.num_nodes, device)
 
 
-def sgns_embedding(model, walks: np.ndarray, num_nodes: int,
-                   device) -> torch.Tensor:
-    """DeepWalk's and node2vec's shared tail: the pairs of ``walks`` on
-    ``device``, then ``model.iteration`` epochs of SGNS."""
+def sgns_embedding(model, walks: np.ndarray, num_nodes: int, device,
+                   max_pairs: int = MAX_PAIRS) -> torch.Tensor:
+    """DeepWalk's, node2vec's and metapath2vec's shared tail: the pairs of
+    ``walks`` on ``device`` (at most ``max_pairs``), then
+    ``model.iteration`` epochs of SGNS."""
     with model.stage("pairs", device):
         pairs = walks_to_pairs(
-            walks, model.window_size, max_pairs=MAX_PAIRS,
+            walks, model.window_size, max_pairs=max_pairs,
             draws=model.make_draws("pairs", model.seed, device),
             device=device)
     with model.stage("train", device):

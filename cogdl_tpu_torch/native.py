@@ -10,17 +10,19 @@ renames it into place, so processes that build at once never load a
 half-written library. A failed build raises with g++'s output; nothing gives
 way to numpy.
 
-``sample_neighbors`` and ``random_walk`` are bound now (the network
-embeddings' uniform walks run on ``random_walk``); the file's
-``node2vec_walk``, ``induced_subgraph`` and ``coo2csr`` are not: no module
-of the JAX package calls its own ``native.node2vec_walk`` (its
-``node2vec_walks`` is numpy only, and so is the port's), so each waits for
-the first module that needs it. The draws of each are fixed by
-``(seed, num_threads)``: thread ``t`` of ``T`` takes the seeds (or walk
-starts) ``[n·t/T, n·(t+1)/T)`` with its own xorshift128+ stream seeded
-``(seed, t + 1)``. :func:`sample_neighbors_reference` and
-:func:`random_walk_reference` are the plain versions, numpy replays of the
-same streams that give the same draws bit for bit.
+``sample_neighbors``, ``random_walk`` (the network embeddings' uniform
+walks, GCC's walks with restart) and ``induced_subgraph`` (GCC's
+subgraphs) are bound. The file's ``node2vec_walk`` and ``coo2csr`` are
+not: no module of the JAX package calls its own ``native.node2vec_walk``
+(its ``node2vec_walks`` is numpy only, and so is the port's), and the JAX
+``utils/graph_utils.coo2csr`` that calls ``native.coo2csr`` is not ported
+(``data/sampling.graph_csr`` builds the port's CSR with numpy). The draws of
+the two samplers are fixed by ``(seed, num_threads)``: thread ``t`` of
+``T`` takes the seeds (or walk starts) ``[n·t/T, n·(t+1)/T)`` with its own
+xorshift128+ stream seeded ``(seed, t + 1)``.
+:func:`sample_neighbors_reference`, :func:`random_walk_reference` and
+:func:`induced_subgraph_reference` are the plain versions, numpy replays
+that give the library's output bit for bit.
 """
 
 from __future__ import annotations
@@ -99,6 +101,10 @@ def load_library() -> ctypes.CDLL:
                                 ctypes.c_int64, ctypes.c_double,
                                 ctypes.c_uint64, ctypes.c_int, i64p]
     lib.random_walk.restype = ctypes.c_int
+    lib.induced_subgraph.argtypes = [i64p, i64p, i64p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64, i64p,
+                                     i64p]
+    lib.induced_subgraph.restype = ctypes.c_int64
     lib.omp_max_threads.argtypes = []
     lib.omp_max_threads.restype = ctypes.c_int
     return lib
@@ -295,3 +301,54 @@ def random_walk_reference(indptr, indices, starts, walk_length: int,
                                cur)
                 out[rows[live], t] = cur[live]
     return out
+
+
+def _check_subgraph(indptr: np.ndarray, nodes: np.ndarray) -> np.ndarray:
+    """``nodes`` sorted, after checking that they are distinct ids of the
+    CSR's rows."""
+    n_nodes = indptr.shape[0] - 1
+    nodes = np.sort(nodes)
+    if nodes.size and (nodes[0] < 0 or nodes[-1] >= n_nodes):
+        raise ValueError(f"induced_subgraph: node ids must lie in [0, "
+                         f"{n_nodes}), got [{nodes[0]}, {nodes[-1]}]")
+    if nodes.size > 1 and not (nodes[1:] > nodes[:-1]).all():
+        raise ValueError("induced_subgraph: node ids must be distinct")
+    return nodes
+
+
+def induced_subgraph(indptr, indices, nodes) -> Tuple[np.ndarray,
+                                                      np.ndarray]:
+    """The CSR's entries between two of ``nodes``: ``(row, col)`` int64,
+    as positions in ``sorted(nodes)``, in CSR order (rows ascending, each
+    row's entries in the CSR's order)."""
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int64)
+    nodes = np.ascontiguousarray(
+        _check_subgraph(indptr, np.asarray(nodes, np.int64)))
+    cap = max(int((indptr[nodes + 1] - indptr[nodes]).sum()), 1)
+    row = np.empty(cap, np.int64)
+    col = np.empty(cap, np.int64)
+    e = load_library().induced_subgraph(indptr, indices, nodes,
+                                        nodes.shape[0], indptr.shape[0] - 1,
+                                        cap, row, col)
+    return row[:e], col[:e]
+
+
+def induced_subgraph_reference(indptr, indices, nodes
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain version of :func:`induced_subgraph` in numpy: every entry of
+    the sorted nodes' rows, relabelled by a lookup, kept where its column
+    is one of them. Gives the library's ``(row, col)`` bit for bit."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    nodes = _check_subgraph(indptr, np.asarray(nodes, np.int64))
+    lut = np.full(indptr.shape[0] - 1, -1, np.int64)
+    lut[nodes] = np.arange(nodes.shape[0])
+    lo = indptr[nodes]
+    deg = indptr[nodes + 1] - lo
+    row = np.repeat(np.arange(nodes.shape[0], dtype=np.int64), deg)
+    pos = np.arange(int(deg.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(deg) - deg, deg) + np.repeat(lo, deg)
+    col = lut[indices[pos]]
+    keep = col >= 0
+    return row[keep], col[keep]

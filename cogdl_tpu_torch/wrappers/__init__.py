@@ -12,9 +12,10 @@ mixup (``gcnmix``), the multi-stage wrappers (``sagn_staged``,
 ``unsup_graphsage``, ``self_auxiliary``, ``infograph``), link
 prediction (``link_prediction``, ``kg_link_prediction``,
 ``triple_link_prediction``), clustering (``clustering``), recommendation
-(``recommendation``), traffic forecasting (``traffic_prediction``) and
-network embedding (``network_embedding``); the rest wait in ROADMAP.md
-§1."""
+(``recommendation``), traffic forecasting (``traffic_prediction``), network
+embedding (``network_embedding``), multiplex and whole-graph embedding
+(``multiplex_embedding``, ``graph_embedding``) and GCC's contrastive
+pretraining (``gcc``); the rest wait in ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -74,6 +75,11 @@ SUPPORTED_WRAPPERS: Dict[str, str] = {
     "network_embedding":
         "cogdl_tpu_torch.wrappers.network_embedding."
         "NetworkEmbeddingWrapper",
+    "multiplex_embedding":
+        "cogdl_tpu_torch.wrappers.heterogeneous.MultiplexEmbeddingWrapper",
+    "graph_embedding":
+        "cogdl_tpu_torch.wrappers.heterogeneous.GraphEmbeddingWrapper",
+    "gcc": "cogdl_tpu_torch.wrappers.pretraining.GCCWrapper",
 }
 
 # model name → default wrapper
@@ -116,6 +122,9 @@ DEFAULT_WRAPPER = {
     "prone++": "network_embedding", "hope": "network_embedding",
     "grarep": "network_embedding", "spectral": "network_embedding",
     "sdne": "network_embedding", "dngr": "network_embedding",
+    "metapath2vec": "network_embedding", "pte": "network_embedding",
+    "hin2vec": "network_embedding", "gatne": "multiplex_embedding",
+    "graph2vec": "graph_embedding", "dgk": "graph_embedding", "gcc": "gcc",
 }
 
 

@@ -114,8 +114,17 @@ def test_emb_main_phase_rehearsal(monkeypatch):
     assert info["sgns_profile"]["busy_ms"] is None
 
 
+def test_emb_parity_set_takes_the_ppi_runs_branches():
+    """The smaller network of emb-parity's models other than the SGNS
+    ones takes every size-dependent branch they took at PPI's scale."""
+    assert cs.emb_parity_branches(cs.EMB_PARITY_SET) == \
+        cs.emb_parity_branches(cs.EMB_PPI) == {"netmf": "dense"}
+    assert cs.EMB_PARITY_SET["num_nodes"] < cs.EMB_PPI["num_nodes"]
+    assert cs.EMB_PARITY_SET["num_labels"] == cs.EMB_PPI["num_labels"]
+
+
 def test_emb_parity_phase_rehearsal():
-    errs = cs.phase_emb_parity(CPU, emb_set=TINY)
+    errs = cs.phase_emb_parity(CPU, emb_set=TINY, sgns_set=TINY)
     assert set(errs) == set(cs.EMB_MODELS) | {"f1_probe"}
     # ARPACK's start vector is its own: HOPE agrees by its invariants
     assert all(v <= 1.0 for v in errs.values()), errs

@@ -124,7 +124,10 @@ def test_missing_files_raise_with_where_to_put_them(tmp_path, monkeypatch):
         f"{k}-{d}" for k in ("gtn", "han") for d in ("acm", "dblp", "imdb")
     } | {"yelp2018", "ali", "amazon-rec", "pems-stgcn", "pems-stgat"} | {
         "blogcatalog", "wikipedia", "ppi-ne", "dblp-ne", "flickr-ne",
-        "youtube-ne"}
+        "youtube-ne"} | {"amazon", "twitter", "youtube"} | {
+        "usa-airport", "h-index", "gcc_academic", "gcc_dblp_netrep",
+        "gcc_dblp_snap", "gcc_facebook", "gcc_imdb", "gcc_livejournal",
+        "kdd_icdm", "sigir_cikm", "sigmod_icde"}
 
 
 def test_build_dataset_reads_the_data_root(tmp_path, monkeypatch):

@@ -130,10 +130,25 @@ def test_five_steps_match_jax(name):
         assert float(wt.model.ema_step) == STEPS
 
 
-def test_unsup_graphsage_batches_and_steps_match_jax():
+def _jax_library_walks(indptr, indices, starts, walk_length, seed=0,
+                       **kw):
+    """A stand-in for the JAX package's ``native.random_walk``: walks of
+    its shape that stay at their starts. The test compares starts and
+    negatives and feeds the JAX batches to both sides, so the walks need
+    not be the library's."""
+    return np.repeat(np.asarray(starts, np.int64)[:, None], walk_length, 1)
+
+
+def test_unsup_graphsage_batches_and_steps_match_jax(monkeypatch):
     """The port wrapper's starts and negatives equal the JAX wrapper's draw
     for draw over five epochs (the walks are the port library's own); five
-    steps over the JAX batches give the JAX losses."""
+    steps over the JAX batches give the JAX losses. The JAX wrapper takes
+    its library's branch (its walk seed one draw of ``2**62``, as the
+    port's), whether or not its library builds in this process."""
+    import cogdl_tpu.native as jnative
+
+    monkeypatch.setattr(jnative, "available", lambda: True)
+    monkeypatch.setattr(jnative, "random_walk", _jax_library_walks)
     kw = dict(in_features=F_IN, out_features=4, hidden_size=16, dropout=0.0)
     jm = j_build_model("unsup_graphsage", **kw)
     wj = j_fetch_wrapper("unsup_graphsage")(jm)
