@@ -15,3 +15,9 @@ def experiment(*args, **kwargs):
     from .experiments import experiment as _experiment
 
     return _experiment(*args, **kwargs)
+
+
+def pipeline(*args, **kwargs):
+    from .pipelines import pipeline as _pipeline
+
+    return _pipeline(*args, **kwargs)

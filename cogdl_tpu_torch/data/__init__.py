@@ -5,6 +5,7 @@ from .graph import (
     from_coo,
     pad_to,
     remove_self_loops,
+    reverse,
     row_norm,
     sym_norm,
     to_undirected,
@@ -12,5 +13,6 @@ from .graph import (
 
 __all__ = [
     "Graph", "from_coo", "sym_norm", "row_norm", "col_norm",
-    "add_self_loops", "remove_self_loops", "to_undirected", "pad_to",
+    "add_self_loops", "remove_self_loops", "to_undirected", "reverse",
+    "pad_to",
 ]

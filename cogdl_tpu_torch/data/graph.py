@@ -25,6 +25,7 @@ lands on the device of the graph it was built from. Weight transforms
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -42,6 +43,12 @@ __all__ = [
     "remove_self_loops",
     "to_undirected",
     "pad_to",
+    "reverse",
+    "to_scipy",
+    "to_networkx",
+    "subgraph",
+    "edge_subgraph",
+    "local_graph",
 ]
 
 
@@ -494,3 +501,96 @@ def pad_to(g: Graph, n_pad: int, e_pad: int) -> Graph:
         extras=g.extras,
         meta=g.meta,
     )
+
+
+def reverse(g: Graph) -> Graph:
+    """The transposed graph (the original's CSC as a CSR), node data
+    kept."""
+    row, col, w = _real_edges(g)
+    ea, et = _edge_data(g)
+    return _rebuild_structure(g, col, row, w, ea, et)
+
+
+# ---------------------------------------------------------------------------
+# Exports, subgraphs and scoped changes
+# ---------------------------------------------------------------------------
+
+def to_scipy(g: Graph):
+    """scipy CSR of the real (unpadded) weighted adjacency, ``[row, col]``
+    = destination, source."""
+    import scipy.sparse as sp
+
+    row, col, w = _real_edges(g)
+    N = g.num_nodes
+    return sp.csr_matrix((w, (row, col)), shape=(N, N))
+
+
+def to_networkx(g: Graph):
+    """A networkx ``DiGraph`` of the real nodes with an edge source →
+    destination for each real edge, its ``weight`` the edge's. Raises
+    ``ImportError`` where networkx is not installed."""
+    import networkx as nx
+
+    row, col, w = _real_edges(g)
+    G = nx.DiGraph()
+    G.add_nodes_from(range(g.num_nodes))
+    G.add_weighted_edges_from(zip(col.tolist(), row.tolist(), w.tolist()))
+    return G
+
+
+# meta entries a rebuild over other edges drops
+_STRUCTURE_META = ("norm", "spmm_panel_rows", "spmm_r_tile",
+                   "spmm_gather_bf16")
+
+
+def subgraph(g: Graph, nodes) -> Graph:
+    """The subgraph induced by ``nodes``, relabelled ``0..len(nodes)-1`` in
+    their order, freshly padded, its node data rows following ``nodes``;
+    no extras. Built on the host, the result on ``g``'s device."""
+    nodes = np.asarray(nodes, np.int64)
+    row, col, w = _real_edges(g)
+    new_id = np.full(g.n_pad, -1, np.int64)
+    new_id[nodes] = np.arange(nodes.size)
+    keep = (new_id[row] >= 0) & (new_id[col] >= 0)
+    ea, et = _edge_data(g)
+    ng = from_coo(
+        np.stack([new_id[row[keep]], new_id[col[keep]]]),
+        num_nodes=nodes.size, edge_weight=w[keep],
+        edge_attr=None if ea is None else ea[keep],
+        edge_type=None if et is None else et[keep],
+        meta={k: v for k, v in g.meta if k not in _STRUCTURE_META},
+    ).to(g.device)
+    idx = torch.from_numpy(nodes).to(g.device)
+
+    def take(a):
+        return None if a is None else _repad_nodes(a[idx], ng.n_pad)
+
+    return ng.replace(x=take(g.x), y=take(g.y), train_mask=take(g.train_mask),
+                      val_mask=take(g.val_mask), test_mask=take(g.test_mask))
+
+
+def edge_subgraph(g: Graph, edge_idx, relabel: bool = True) -> Graph:
+    """The subgraph of the real edges ``edge_idx``: with ``relabel`` the
+    :func:`subgraph` of their endpoints (``g`` itself when there are
+    none), else those edges over all of ``g``'s nodes, node data kept."""
+    edge_idx = np.asarray(edge_idx, np.int64)
+    row, col, w = _real_edges(g)
+    row, col, w = row[edge_idx], col[edge_idx], w[edge_idx]
+    if relabel:
+        nodes = np.unique(np.concatenate([row, col]))
+        return subgraph(g, nodes) if nodes.size else g
+    ea, et = _edge_data(g)
+    return _rebuild_structure(g, row, col, w,
+                              None if ea is None else ea[edge_idx],
+                              None if et is None else et[edge_idx])
+
+
+@contextlib.contextmanager
+def local_graph(g: Graph, **overrides):
+    """A copy of ``g`` with ``overrides`` (:meth:`Graph.replace`) for the
+    ``with`` block; graphs are immutable, so ``g`` itself never changes.
+
+    >>> with local_graph(g, edge_weight=w2) as g2:
+    ...     out = model(g2)
+    """
+    yield g.replace(**overrides)

@@ -11,18 +11,17 @@ half-written library. A failed build raises with g++'s output; nothing gives
 way to numpy.
 
 ``sample_neighbors``, ``random_walk`` (the network embeddings' uniform
-walks, GCC's walks with restart) and ``induced_subgraph`` (GCC's
-subgraphs) are bound. The file's ``node2vec_walk`` and ``coo2csr`` are
-not: no module of the JAX package calls its own ``native.node2vec_walk``
-(its ``node2vec_walks`` is numpy only, and so is the port's), and the JAX
-``utils/graph_utils.coo2csr`` that calls ``native.coo2csr`` is not ported
-(``data/sampling.graph_csr`` builds the port's CSR with numpy). The draws of
+walks, GCC's walks with restart), ``induced_subgraph`` (GCC's subgraphs)
+and ``coo2csr`` (``utils/graph_utils``' conversions) are bound. The file's
+``node2vec_walk`` is not: no module of the JAX package calls its own
+``native.node2vec_walk`` (its ``node2vec_walks`` is numpy only, and so is
+the port's). The draws of
 the two samplers are fixed by ``(seed, num_threads)``: thread ``t`` of
 ``T`` takes the seeds (or walk starts) ``[n·t/T, n·(t+1)/T)`` with its own
 xorshift128+ stream seeded ``(seed, t + 1)``.
-:func:`sample_neighbors_reference`, :func:`random_walk_reference` and
-:func:`induced_subgraph_reference` are the plain versions, numpy replays
-that give the library's output bit for bit.
+:func:`sample_neighbors_reference`, :func:`random_walk_reference`,
+:func:`induced_subgraph_reference` and :func:`coo2csr_reference` are the
+plain versions, numpy replays that give the library's output bit for bit.
 """
 
 from __future__ import annotations
@@ -105,6 +104,9 @@ def load_library() -> ctypes.CDLL:
                                      ctypes.c_int64, ctypes.c_int64, i64p,
                                      i64p]
     lib.induced_subgraph.restype = ctypes.c_int64
+    lib.coo2csr.argtypes = [i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                            i64p, i64p, i64p]
+    lib.coo2csr.restype = None
     lib.omp_max_threads.argtypes = []
     lib.omp_max_threads.restype = ctypes.c_int
     return lib
@@ -352,3 +354,47 @@ def induced_subgraph_reference(indptr, indices, nodes
     col = lut[indices[pos]]
     keep = col >= 0
     return row[keep], col[keep]
+
+
+def _check_coo(row: np.ndarray, col: np.ndarray, num_nodes: int) -> None:
+    if row.shape != col.shape or row.ndim != 1:
+        raise ValueError(f"coo2csr: row and col must be 1-D of one length, "
+                         f"got {row.shape} and {col.shape}")
+    if num_nodes < 0:
+        raise ValueError(f"coo2csr: num_nodes must be >= 0, got {num_nodes}")
+    if row.size and (row.min() < 0 or row.max() >= num_nodes):
+        raise ValueError(f"coo2csr: row ids must lie in [0, {num_nodes}), "
+                         f"got [{row.min()}, {row.max()}]")
+
+
+def coo2csr(row, col, num_nodes: int) -> Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
+    """The COO edges ``(row, col)`` as CSR over ``num_nodes`` rows by a
+    counting sort: ``(indptr int64[num_nodes + 1], indices int64[E], perm
+    int64[E])``, ``perm`` the input edge at each CSR slot; each row keeps
+    its edges in input order."""
+    row = np.ascontiguousarray(row, np.int64)
+    col = np.ascontiguousarray(col, np.int64)
+    num_nodes = int(num_nodes)
+    _check_coo(row, col, num_nodes)
+    E = row.shape[0]
+    indptr = np.empty(num_nodes + 1, np.int64)
+    indices = np.empty(max(E, 1), np.int64)
+    perm = np.empty(max(E, 1), np.int64)
+    load_library().coo2csr(row, col, E, num_nodes, indptr, indices, perm)
+    return indptr, indices[:E], perm[:E]
+
+
+def coo2csr_reference(row, col, num_nodes: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Plain version of :func:`coo2csr` in numpy: a stable sort by row
+    and the rows' counts summed. Gives the library's output bit for
+    bit."""
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    num_nodes = int(num_nodes)
+    _check_coo(row, col, num_nodes)
+    perm = np.argsort(row, kind="stable")
+    indptr = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=num_nodes), out=indptr[1:])
+    return indptr, col[perm], perm

@@ -3,8 +3,10 @@
 
 from .segment import (
     gather,
+    scatter_max_with_argmax,
     segment_max,
     segment_mean,
+    segment_min,
     segment_softmax,
     segment_sum,
 )
@@ -15,6 +17,12 @@ from .spmm import (
     gather_src,
     mh_sddmm,
     mh_spmm,
+    s_add_e_mean,
+    s_add_e_sum,
+    s_dot_t,
+    s_mul_e_mean,
+    s_mul_e_sum,
+    s_sub_e_sum,
     sddmm,
     source_table,
     spmm,
@@ -22,8 +30,9 @@ from .spmm import (
 )
 
 __all__ = [
-    "gather", "segment_sum", "segment_mean", "segment_max",
-    "segment_softmax", "spmm", "spmm_coo", "source_table",
-    "cache_propagation", "gather_src", "sddmm", "edge_softmax", "mh_spmm",
-    "mh_sddmm", "aggregate",
+    "gather", "segment_sum", "segment_mean", "segment_max", "segment_min",
+    "segment_softmax", "scatter_max_with_argmax", "spmm", "spmm_coo",
+    "source_table", "cache_propagation", "gather_src", "sddmm",
+    "edge_softmax", "mh_spmm", "mh_sddmm", "s_add_e_sum", "s_mul_e_sum",
+    "s_sub_e_sum", "s_add_e_mean", "s_mul_e_mean", "s_dot_t", "aggregate",
 ]

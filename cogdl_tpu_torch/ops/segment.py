@@ -16,7 +16,9 @@ __all__ = [
     "segment_sum",
     "segment_mean",
     "segment_max",
+    "segment_min",
     "segment_softmax",
+    "scatter_max_with_argmax",
     "gather",
 ]
 
@@ -57,6 +59,34 @@ def segment_max(data, segment_ids, num_segments: int, sorted: bool = True,
     """Max-aggregation; empty segments get ``empty_value``."""
     m = _segment_max_raw(data, segment_ids, num_segments)
     return torch.where(m <= _NEG_INF / 2, torch.full_like(m, empty_value), m)
+
+
+def segment_min(data, segment_ids, num_segments: int, sorted: bool = True,
+                empty_value: float = 0.0):
+    """Min-aggregation; empty segments get ``empty_value``."""
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), float("inf"))
+    m = out.scatter_reduce(0, _expand_ids(segment_ids, data), data, "amin",
+                           include_self=False)
+    return torch.where(m >= -_NEG_INF / 2, torch.full_like(m, empty_value), m)
+
+
+def scatter_max_with_argmax(data, segment_ids, num_segments: int,
+                            sorted: bool = True):
+    """Per-segment max and the lowest index of an element that attains it
+    (``-1`` in an empty segment, whose max is 0); the gradient flows
+    through the max only."""
+    m = segment_max(data, segment_ids, num_segments, empty_value=_NEG_INF)
+    is_max = data == m.index_select(0, segment_ids.long())
+    eidx = torch.arange(data.shape[0], device=data.device)
+    eidx = eidx.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+    big = torch.iinfo(torch.int32).max
+    cand = torch.where(is_max, eidx, torch.full_like(eidx, big))
+    amax = cand.new_full((num_segments,) + tuple(data.shape[1:]), big)
+    amax = amax.scatter_reduce(0, _expand_ids(segment_ids, data), cand,
+                               "amin", include_self=True)
+    amax = torch.where(amax == big, torch.full_like(amax, -1), amax)
+    m = torch.where(m <= _NEG_INF / 2, torch.zeros_like(m), m)
+    return m, amax.to(torch.int32)
 
 
 def segment_softmax(

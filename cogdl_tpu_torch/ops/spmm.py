@@ -35,7 +35,8 @@ from . import segment as seg
 
 __all__ = ["spmm", "spmm_coo", "source_table", "cache_propagation",
            "gather_src", "sddmm", "edge_softmax", "mh_spmm", "mh_sddmm",
-           "aggregate"]
+           "s_add_e_sum", "s_mul_e_sum", "s_sub_e_sum", "s_add_e_mean",
+           "s_mul_e_mean", "s_dot_t", "aggregate"]
 
 
 def spmm_coo(
@@ -136,6 +137,65 @@ def mh_sddmm(graph: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ae = seg.gather(a.reshape(-1, H * D), graph.row).reshape(-1, H, D)
     be = gather_src(graph, b.reshape(-1, H * D)).reshape(-1, H, D)
     return (ae * be).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# Generic message ops: a source feature combined with an edge feature,
+# aggregated by destination (index ops on every device)
+# ---------------------------------------------------------------------------
+
+def _combine(op: str, src: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
+    if edge.ndim < src.ndim:
+        edge = edge.reshape(tuple(edge.shape) + (1,) * (src.ndim - edge.ndim))
+    if op == "add":
+        return src + edge
+    if op == "mul":
+        return src * edge
+    if op == "sub":
+        return src - edge
+    raise ValueError(op)
+
+
+def _s_op_e_agg(op: str, agg: str, graph: Graph, src_feat, edge_feat):
+    msg = _combine(op, gather_src(graph, src_feat), edge_feat)
+    # pad edges contribute nothing: their messages are zeroed (the sink's
+    # features are 0, but an edge feature on a pad slot need not be)
+    m = graph.edge_mask().reshape((-1,) + (1,) * (msg.ndim - 1))
+    msg = torch.where(m, msg, torch.zeros_like(msg))
+    if agg == "sum":
+        return seg.segment_sum(msg, graph.row, graph.n_pad)
+    if agg == "mean":
+        s = seg.segment_sum(msg, graph.row, graph.n_pad)
+        deg = graph.in_degrees().reshape((-1,) + (1,) * (msg.ndim - 1))
+        return s / deg.clamp_min(1.0)
+    if agg == "max":
+        return seg.segment_max(msg, graph.row, graph.n_pad)
+    raise ValueError(agg)
+
+
+def s_add_e_sum(graph, src, edge):
+    return _s_op_e_agg("add", "sum", graph, src, edge)
+
+
+def s_mul_e_sum(graph, src, edge):
+    return _s_op_e_agg("mul", "sum", graph, src, edge)
+
+
+def s_sub_e_sum(graph, src, edge):
+    return _s_op_e_agg("sub", "sum", graph, src, edge)
+
+
+def s_add_e_mean(graph, src, edge):
+    return _s_op_e_agg("add", "mean", graph, src, edge)
+
+
+def s_mul_e_mean(graph, src, edge):
+    return _s_op_e_agg("mul", "mean", graph, src, edge)
+
+
+def s_dot_t(graph, src, dst):
+    """Per-edge dot of the source and destination features, ``[E, 1]``."""
+    return sddmm(graph, dst, src)[:, None]
 
 
 def aggregate(graph: Graph, x: torch.Tensor, how: str = "sum") -> torch.Tensor:

@@ -163,9 +163,20 @@ def test_powerlaw_graph_matches():
                       tsyn.powerlaw_graph(200, **kw))
 
 
-def test_build_dataset_names():
+def test_build_dataset_names(tmp_path, monkeypatch):
+    import cogdl_tpu.datasets as jds
+    import cogdl_tpu_torch.datasets as tds
+
     ds = build_dataset("powerlaw-1k", avg_degree=3, feat_dim=4)
     assert ds.graph.num_nodes == 1000 and ds.num_features == 4
     assert build_dataset("sbm").num_classes == 4
-    with pytest.raises(ValueError, match="not yet ported"):
+    # a registry name without its files: the JAX loader's error
+    monkeypatch.setattr(jds, "DATA_ROOT", str(tmp_path))
+    monkeypatch.setattr(tds, "DATA_ROOT", str(tmp_path))
+    with pytest.raises(FileNotFoundError) as want:
+        jds.build_dataset("cora")
+    with pytest.raises(FileNotFoundError) as got:
         build_dataset("cora")
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        build_dataset("no-such-set")
